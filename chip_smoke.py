@@ -1,0 +1,281 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check every kernel.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an H100 (the build needs
+``nvcc``). Phases, each of which exits non-zero on failure:
+
+1. the card (``nvidia-smi`` name and power limit, capability), the
+   toolchain, and the kernels' build from ``src/repro_torch/kernels/csrc``;
+2. every legal tile point of each CI shape and of each full-width shape,
+   through the kernel and through its plain torch version on the card: the
+   points the Hopper resource model calls feasible must launch and agree
+   row by row within ``conformance.PLAIN_REL`` of each row's largest value,
+   the others must be refused;
+3. the main path, ``repro_torch.launch.dse`` once per kernel on its
+   full-width shape (greedy, 2 iterations, budget 3, the 2 best measured):
+   launch counts are set to 0 just before each run and read just after,
+   rows must be gate-checked on the card and measured rows must say
+   ``backend: cuda``; then with ``REPRO_KERNEL_INJECT_BAD`` naming the
+   default point, that point must become an ``infeasible`` row;
+4. at each full-width default point, the kernel's, the plain version's and
+   one PyTorch library call's times from CUDA events, beside the roofline
+   bound; then the flash kernel's time at every feasible full-width tile,
+   beside the resource model's estimate.
+
+It prints a JSON line of per-kernel results, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
+jax or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "artifacts" / "chip_smoke"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def sh(*cmd: str) -> str:
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
+    if r.returncode != 0:
+        fail(f"{' '.join(cmd)} exited {r.returncode}: {r.stderr.strip()}")
+    return r.stdout.strip()
+
+
+def time_ms(fn, *, budget_s: float = 0.2, max_reps: int = 100) -> float:
+    """Mean milliseconds per call from CUDA events, after two warm calls,
+    over enough calls to fill about ``budget_s``."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    one = start.elapsed_time(end)
+    reps = max(1, min(max_reps, int(budget_s * 1e3 / max(one, 1e-3))))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch sees no CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.core.cost_db import CostDB
+    from repro_torch.core.design_space import KernelTemplate, baseline_kernel_point
+    from repro_torch.core.device import H100_SXM, peak_flops
+    from repro_torch.core.kernel_space import (CI_KERNEL_SHAPES, KERNEL_SHAPE_BY_NAME,
+                                               KernelShape, kernel_resources, tile_grid)
+    from repro_torch.kernels import _build, conformance, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import vecmul as vm
+    from repro_torch.launch import dse
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
+    print(f"card: {card}; capability {torch.cuda.get_device_capability(0)}; "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(sh(_build.nvcc_path(), "--version").splitlines()[-1], flush=True)
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS:.2f} s)",
+          flush=True)
+
+    full = {"vecmul": "vec_16m_f32", "rmsnorm": "rms_llama3_8b_8kx4096_bf16",
+            "flash_attention": "attn_llama3_8b_s4096_bf16"}
+    modules = {"vecmul": vm, "rmsnorm": rn, "flash_attention": fa}
+
+    # ---- phase 2: every legal tile point, kernel against plain version ----
+    odd = [KernelShape("rms_odd_173x96_f32", "rmsnorm", {"rows": 173, "d": 96}, "float32"),
+           KernelShape("vec_odd_5000_bf16", "vecmul", {"L": 5000}, "bfloat16")]
+    shapes = [s for s in CI_KERNEL_SHAPES if s.kernel in full] + odd + \
+        [KERNEL_SHAPE_BY_NAME[n] for n in full.values()]
+    for shape in shapes:
+        inputs = conformance.make_inputs(shape, device=dev)
+        rel = conformance.PLAIN_REL[inputs[0].dtype]
+        n_ok = n_refused = 0
+        worst = None
+        for dims in tile_grid(shape):
+            if not kernel_resources(shape, dims).feasible:
+                try:
+                    conformance.run_candidate(shape, dims, inputs)
+                    torch.cuda.synchronize()
+                except RuntimeError:
+                    n_refused += 1
+                    continue
+                fail(f"{shape.name} {dims}: the model calls it infeasible, "
+                     f"but the card launched it")
+            got = conformance.run_candidate(shape, dims, inputs)
+            agree = conformance.agree_with_plain(
+                got, conformance.run_plain(shape, dims, inputs))
+            if not agree["passed"]:
+                fail(f"{shape.name} {dims}: kernel vs plain {agree}")
+            if worst is None or agree["ratio"] > worst["ratio"]:
+                worst = agree
+            n_ok += 1
+        print(f"grid {shape.name}: {n_ok} feasible points agree with the plain "
+              f"version row by row within {rel:.3g} of each row's max |out| "
+              f"(worst row: err/limit {worst['ratio']:.3g}, limit {worst['limit']:.3g}; "
+              f"max|err| {worst['max_abs_err']:.3g}; mean |out| {worst['mean_abs']:.3g}); "
+              f"{n_refused} infeasible points refused", flush=True)
+        del inputs
+
+    # ---- phase 3: the main path, one DSE cell per kernel at full width ----
+    launches = {}
+    for kernel, shape_name in full.items():
+        db_dir = OUT / kernel
+        shutil.rmtree(db_dir, ignore_errors=True)
+        argv = ["--space", "kernels", "--arch", kernel, "--shape", shape_name,
+                "--strategy", "greedy", "--iterations", "2", "--budget", "3",
+                "--measure-top-k", "2", "--db", str(db_dir / "cost_db.jsonl")]
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        report = dse.main(argv)
+        counts = ops.launch_counts()
+        launches[kernel] = counts[kernel]
+        rows = CostDB(db_dir / "cost_db.jsonl").all()
+        print(f"main path {kernel}/{shape_name}: {time.perf_counter() - t:.1f} s, "
+              f"{len(rows)} rows, launches {counts}", flush=True)
+        if counts[kernel] == 0:
+            fail(f"{kernel}: the main path launched its kernel no time")
+        if any(d.status == "error" for d in rows):
+            fail(f"{kernel}: error rows: {[d.reason for d in rows if d.status == 'error']}")
+        checked = [d for d in rows if d.fidelity == "dryrun" and d.status == "ok"]
+        measured = [d for d in rows if d.fidelity == "measured"]
+        if not checked or report["best"] is None:
+            fail(f"{kernel}: no candidate passed the gate")
+        if not measured or any(d.status != "ok" or d.metrics["backend"] != "cuda"
+                               for d in measured):
+            fail(f"{kernel}: measured rows must be ok on cuda: "
+                 f"{[(d.status, d.metrics.get('backend')) for d in measured]}")
+        for d in checked + measured:
+            err = d.metrics["max_abs_err"]
+            if not (math.isfinite(err) and err <= d.metrics["tol"]):
+                fail(f"{kernel}: row {d.point} max|err| {err} beyond tol")
+
+        shape = KERNEL_SHAPE_BY_NAME[shape_name]
+        default = baseline_kernel_point(shape, KernelTemplate(shape)).dims
+        dim, val = next((k, v) for k, v in default.items() if k != "causal")
+        os.environ[conformance.INJECT_ENV] = f"{kernel}:{dim}={val}"
+        try:
+            bad_dir = OUT / f"{kernel}_inject"
+            shutil.rmtree(bad_dir, ignore_errors=True)
+            dse.main(["--arch", kernel, "--shape", shape_name, "--iterations", "0",
+                      "--db", str(bad_dir / "cost_db.jsonl")])
+        finally:
+            del os.environ[conformance.INJECT_ENV]
+        base = CostDB(bad_dir / "cost_db.jsonl").all()[0]
+        if base.status != "infeasible" or not base.reason.startswith("correctness gate"):
+            fail(f"{kernel}: injected bad default gave {base.status}: {base.reason}")
+        print(f"gate {kernel}: injected {dim}={val} -> infeasible ({base.reason})",
+              flush=True)
+
+    # ---- phase 4: times at each full-width default point ----
+    results = []
+    for kernel, shape_name in full.items():
+        shape = KERNEL_SHAPE_BY_NAME[shape_name]
+        dims = baseline_kernel_point(shape, KernelTemplate(shape)).dims
+        inputs = conformance.make_inputs(shape, device=dev)
+        p = shape.params
+        if kernel == "vecmul":
+            x, y = inputs
+            run = lambda: vm.vecmul_cuda(x, y, block=dims["block"])  # noqa: E731
+            lib = lambda: torch.mul(x, y)  # noqa: E731
+            nbytes, flops = 3 * x.numel() * x.element_size(), x.numel()
+        elif kernel == "rmsnorm":
+            x, w = inputs
+            run = lambda: rn.rmsnorm_cuda(x, w, block_rows=dims["block_rows"])  # noqa: E731
+            lib = lambda: F.rms_norm(x, (p["d"],), w, eps=1e-5)  # noqa: E731
+            nbytes = (2 * x.numel() + w.numel()) * x.element_size()
+            flops = 4 * x.numel()
+        else:
+            q, k, v = inputs
+            run = lambda: fa.flash_attention_cuda(  # noqa: E731
+                q, k, v, causal=dims["causal"], block_q=dims["block_q"],
+                block_k=dims["block_k"])
+            qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh_, vh, is_causal=dims["causal"], enable_gqa=True)
+            sq, sk = p["sq"], p["sk"]
+            pairs = (sum(min(sk, i + 1) for i in range(sq)) if dims["causal"]
+                     else sq * sk)
+            flops = 4 * p["d"] * p["b"] * p["h"] * pairs
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        agree = conformance.agree_with_plain(
+            run(), conformance.run_plain(shape, dims, inputs))
+        if not agree["passed"]:
+            fail(f"{kernel} at its default point: kernel vs plain {agree}")
+        err = agree["max_abs_err"]
+        t_bytes = nbytes / H100_SXM.hbm_bw
+        t_ops = flops / peak_flops(H100_SXM, shape.dtype)
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, inputs),
+                           budget_s=0.5, max_reps=10)
+        library_ms = time_ms(lib)
+        mod = modules[kernel]
+        results.append({
+            "name": kernel, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "launches": launches[kernel],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        })
+        print(f"time {kernel} {shape_name} {dims}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({results[-1]['bound_by']}), {100 * bound_ms / ms:.1f}% of bound "
+              f"[{card}]", flush=True)
+        del inputs
+
+    # where the flash kernel's time goes: every feasible full-width tile,
+    # beside the resource model's estimate for it
+    shape = KERNEL_SHAPE_BY_NAME[full["flash_attention"]]
+    q, k, v = conformance.make_inputs(shape, device=dev)
+    for dims in tile_grid(shape):
+        res = kernel_resources(shape, dims)
+        if not res.feasible:
+            continue
+        ms = time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=dims["causal"], block_q=dims["block_q"],
+            block_k=dims["block_k"]), max_reps=10)
+        print(f"sweep flash_attention {dims}: kernel {ms:.4f} ms, modelled "
+              f"{res.est_latency_us / 1e3:.4f} ms, smem {res.vmem_bytes} B, "
+              f"{res.blocks_per_sm} blocks/SM [{card}]", flush=True)
+    del q, k, v
+
+    print(json.dumps({"kernels": results}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,48 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel file exports one `extern "C"` launcher with a plain C
+// interface (pointers as void*, the stream as void*), bound from Python with
+// ctypes. A launcher checks its arguments, launches on the caller's stream,
+// never synchronises, and returns cudaGetLastError() so that a refused launch
+// (too many threads, too much shared memory) reaches the Python wrapper,
+// which raises.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// dtype codes shared with repro_torch/kernels/_build.py::DTYPE_CODES
+enum { DTYPE_F32 = 0, DTYPE_BF16 = 1 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_float(float v);
+template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
+}
+
+// elements of T in one 16-byte vector access
+template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
+
+// Sum of `v` over all threads of the block, in f32. `red` is shared memory
+// of at least 33 floats. Every thread gets the total. Safe to call again
+// right after it returns: slot 32 is written only after the first barrier.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < nwarps ? red[lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
+    if (lane == 0) red[32] = t;
+  }
+  __syncthreads();
+  return red[32];
+}

@@ -1,0 +1,137 @@
+"""Analytic kernel resource model for Hopper: the HLS resource-report analog.
+
+Counterpart of ``repro/kernels/resource_model.py``, which budgets TPU VMEM.
+For each candidate tile of a port kernel it reports:
+
+* ``vmem_bytes``: the dynamic shared memory the port's kernel asks for at
+  this tile (the kernel modules' ``smem_bytes``, the same function the
+  launch calls), and ``vmem_util``, its share of the 232,448 B a block may
+  have (the BRAM-utilization analog; the names stay because
+  ``cost_db.derive_objectives`` reads ``vmem_util``);
+* ``feasible``: that figure fits one block and the thread count is legal,
+  so the DSE never proposes a tile that cannot launch;
+* ``mxu_aligned``: the tile is ``wgmma``-aligned (a multiple of 64 rows,
+  d % 16 == 0); kernels with no matrix product report True;
+* ``vpu_aligned``: rows are whole 16-byte vectors;
+* ``est_latency_us``: blocks in waves over the SMs at the occupancy that
+  shared memory and threads allow, each wave taking one block's
+  max(compute, bytes) time, with the card's f32 and memory rates split
+  evenly among the resident blocks but never more than one SM's share to
+  a block. Each ``csrc/*.cu`` states its terms.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+from repro_torch.core.device import H100_SXM, DeviceModel
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import vecmul as _vm
+
+
+@dataclass(frozen=True)
+class KernelResources:
+    name: str
+    vmem_bytes: int  # dynamic shared memory per block
+    vmem_util: float  # fraction of the per-block limit
+    mxu_aligned: bool
+    vpu_aligned: bool
+    est_cycles_per_block: float
+    est_latency_us: float  # whole-kernel latency estimate
+    feasible: bool
+    notes: str = ""
+    threads: int = 0  # threads per block
+    blocks_per_sm: int = 0  # resident blocks per SM at this tile
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+def blocks_per_sm(smem: int, threads: int, dev: DeviceModel) -> int:
+    """Resident blocks per SM allowed by shared memory and threads."""
+    by_smem = dev.smem_per_sm // (smem + dev.smem_reserved_per_block)
+    by_threads = dev.max_threads_per_sm // max(threads, 1)
+    return max(0, min(by_smem, by_threads, dev.max_blocks_per_sm))
+
+
+def _mk(name, *, smem, threads, n_blocks, flops, nbytes, aligned_mma,
+        aligned_vec, dev: DeviceModel, notes="") -> KernelResources:
+    feasible = (smem <= dev.smem_per_block
+                and 1 <= threads <= dev.max_threads_per_block)
+    occ = max(blocks_per_sm(smem, threads, dev), 1)
+    resident = dev.sm_count * occ
+    waves = math.ceil(n_blocks / resident)
+    # the card's rates split evenly among the blocks resident at once, and
+    # a block never gets more than one SM's share
+    share = max(min(n_blocks, resident), dev.sm_count)
+    t_block = max(flops / n_blocks / (dev.peak_flops_fp32 / share),
+                  nbytes / n_blocks / (dev.hbm_bw / share))
+    return KernelResources(
+        name=name,
+        vmem_bytes=smem,
+        vmem_util=smem / dev.smem_per_block,
+        mxu_aligned=aligned_mma,
+        vpu_aligned=aligned_vec,
+        est_cycles_per_block=t_block * dev.clock_hz,
+        est_latency_us=waves * t_block * 1e6,
+        feasible=feasible,
+        notes=notes,
+        threads=threads,
+        blocks_per_sm=blocks_per_sm(smem, threads, dev),
+    )
+
+
+def vecmul_resources(L: int, block: int, itemsize: int = 4,
+                     dev: DeviceModel = H100_SXM) -> KernelResources:
+    n_blocks = max((L + block - 1) // block, 1)
+    return _mk(
+        "vecmul", smem=_vm.smem_bytes(), threads=_vm.threads(block, itemsize),
+        n_blocks=n_blocks, flops=n_blocks * block,
+        nbytes=3 * n_blocks * block * itemsize,
+        aligned_mma=True,  # no matrix product
+        aligned_vec=(block * itemsize) % 16 == 0,
+        dev=dev, notes=f"L={L} block={block}")
+
+
+def rmsnorm_resources(rows: int, d: int, block_rows: int, itemsize: int = 2,
+                      dev: DeviceModel = H100_SXM) -> KernelResources:
+    n_blocks = max((rows + block_rows - 1) // block_rows, 1)
+    return _mk(
+        "rmsnorm", smem=_rn.smem_bytes(d), threads=_rn.THREADS,
+        n_blocks=n_blocks, flops=4 * rows * d,
+        # each block reads its rows and w once, writes its rows once
+        nbytes=(2 * rows * d + n_blocks * d) * itemsize,
+        aligned_mma=True,  # no matrix product
+        aligned_vec=(d * itemsize) % 16 == 0,
+        dev=dev, notes=f"rows={rows} d={d} block_rows={block_rows}")
+
+
+def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
+                              block_q: int, block_k: int, itemsize: int = 2,
+                              dev: DeviceModel = H100_SXM, *,
+                              causal: bool = True,
+                              q_offset: int = 0) -> KernelResources:
+    n_qt = max(sq // max(block_q, 1), 1)
+    n_blocks = b * h * n_qt
+    walked = sum(_fa.k_tiles_walked(qt, block_q, block_k, sk, causal=causal,
+                                    q_offset=q_offset) for qt in range(n_qt))
+    # every walked tile costs its full QK^T and PV: the kernel computes
+    # masked entries too
+    flops = b * h * walked * 4 * block_q * block_k * d
+    nbytes = b * h * (2 * sq * d + walked * 2 * block_k * d) * itemsize
+    return _mk(
+        "flash_attention",
+        smem=_fa.smem_bytes(block_q, block_k, d, itemsize), threads=_fa.THREADS,
+        n_blocks=n_blocks, flops=flops, nbytes=nbytes,
+        aligned_mma=(block_q % 64 == 0 and block_k % 16 == 0 and d % 16 == 0),
+        aligned_vec=(d * itemsize) % 16 == 0,
+        dev=dev, notes=f"bq={block_q} bk={block_k} d={d} sk={sk} causal={causal}")
+
+
+RESOURCE_FNS = {
+    "vecmul": vecmul_resources,
+    "rmsnorm": rmsnorm_resources,
+    "flash_attention": flash_attention_resources,
+}

@@ -1,0 +1,145 @@
+"""SECDA-DSE loop launcher for one kernel cell, on the H100.
+
+Counterpart of the ``--space kernels`` path of ``repro/launch/dse.py``.
+One cell runs end to end: seed the shipped-default tile, the strategy
+proposes neighbours, each candidate launches the Hopper kernel with its
+tile sizes and is held against the oracle on the card (the correctness
+gate) and ranked on the Hopper resource model's bound, rows go to the
+``CostDB``, the surrogate is fitted, and the measured tier times the best
+heads on the card.
+
+Example:
+    PYTHONPATH=src python -m repro_torch.launch.dse --space kernels \\
+        --arch rmsnorm --shape rms_llama3_8b_8kx4096_bf16 --strategy greedy \\
+        --iterations 2 --budget 3 --measure-top-k 2
+
+``--device cpu`` runs the kernels' plain versions on the CPU instead; the
+default is ``cuda``, and without a card that is an error.
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+from repro_torch.core.kernel_space import (KERNEL_NAMES, KERNEL_SHAPES,
+                                           PORTED_KERNELS, not_yet_ported)
+from repro_torch.launch.kernel_cell import KERNEL_STRATEGY_CHOICES
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The single-cell DSE CLI surface, importable cheaply."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dse")
+    ap.add_argument("--space", default="kernels", choices=["kernels"],
+                    help="design space: 'kernels' tunes one kernel's tile "
+                         "config (--arch is the kernel name, --shape a "
+                         "KERNEL_SHAPES name); the plan space is not yet "
+                         "ported")
+    ap.add_argument("--arch", required=True, choices=list(KERNEL_NAMES))
+    ap.add_argument("--shape", required=True,
+                    choices=[s.name for s in KERNEL_SHAPES])
+    ap.add_argument("--iterations", type=int, default=4)
+    ap.add_argument("--budget", type=int, default=3, help="evaluations per iteration")
+    ap.add_argument("--db", default="artifacts/dse/cost_db.jsonl")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="disable the content-addressed evaluation cache")
+    ap.add_argument("--strategy", default="greedy",
+                    choices=list(KERNEL_STRATEGY_CHOICES),
+                    help="search strategy (see repro_torch.search)")
+    ap.add_argument("--measure-top-k", type=int, default=0, metavar="K",
+                    help="after the loop, launch and time the cell's K best "
+                         "designs on the card (0 = off); measured rows land "
+                         "in the cost DB with fidelity=measured")
+    ap.add_argument("--measure-runs", type=int, default=3, metavar="N",
+                    help="timed launches per measurement (min reported)")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default) runs the Hopper kernels; 'cpu' "
+                         "runs their plain versions")
+    ap.add_argument("--report", default=None, help="write the loop report JSON here")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    """CLI entry: run one kernel cell end to end and return its report.
+    Exits 2 on bad arguments; raises when ``cuda`` is asked for and there
+    is no card."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.measure_top_k < 0:
+        ap.error(f"measure-top-k must be >= 0, got {args.measure_top_k}")
+    if args.measure_runs < 1:
+        ap.error(f"measure-runs must be >= 1, got {args.measure_runs}")
+    if args.arch not in PORTED_KERNELS:
+        ap.error(not_yet_ported(args.arch))
+    from repro_torch.core.kernel_space import KERNEL_SHAPE_BY_NAME, kernel_arch
+
+    kshape = KERNEL_SHAPE_BY_NAME[args.shape]
+    if kshape.kernel != args.arch:
+        ours = tuple(s.name for s in KERNEL_SHAPES if s.kernel == args.arch)
+        ap.error(f"--shape must name a {args.arch} kernel shape "
+                 f"(one of {ours}), got {args.shape!r}")
+
+    from repro_torch.core.cost_db import CostDB, featurize
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.core.design_space import PlanPoint
+    from repro_torch.core.device import resolve_device
+    from repro_torch.core.eval_cache import DryRunCache
+    from repro_torch.core.evaluator import KernelEvaluator
+    from repro_torch.core.promotion import plan_promotions
+    from repro_torch.launch.kernel_cell import (KERNEL_MESH_NAME,
+                                                _explore_kernel_cell)
+    from repro_torch.search import make_strategy
+
+    device = resolve_device(args.device)
+    arch = kernel_arch(args.arch)
+    db = CostDB(args.db)
+    cache = None if args.no_cache else DryRunCache.beside(db.path)
+    measured_cache = (None if args.no_cache else
+                      DryRunCache(Path(db.path).parent / "measured_cache"))
+    evaluator = KernelEvaluator(mesh_name=KERNEL_MESH_NAME,
+                                torch_device=str(device), cache=cache,
+                                measured_cache=measured_cache,
+                                measure_runs=args.measure_runs)
+    cost_model = CostModel.create(in_dim=featurize({}, {}).shape[0])
+    report = _explore_kernel_cell(
+        arch, args.shape, evaluator=evaluator, db=db, cost_model=cost_model,
+        strategy=make_strategy(args.strategy), iterations=args.iterations,
+        budget=args.budget, seed=0)
+    if cache is not None:
+        print(f"evaluation cache: {cache.stats()}")
+
+    if args.measure_top_k > 0:
+        measured_keys = {d.point.get("__key__") for d in
+                         db.measured_rows(arch, args.shape,
+                                          mesh=KERNEL_MESH_NAME)}
+        heads = db.winners(arch, args.shape, k=args.measure_top_k,
+                           mesh=KERNEL_MESH_NAME)
+        for head in plan_promotions(heads, measured_keys,
+                                    top_k=args.measure_top_k):
+            point = PlanPoint(dims={k: v for k, v in head.point.items()
+                                    if k != "__key__"})
+            dp = evaluator.measure(arch, args.shape, point,
+                                   modeled_bound_s=head.metrics.get("bound_s"))
+            db.append(dp)
+            if dp.status == "ok":
+                print(f"measured {point.key()} {dict(point.dims)}: "
+                      f"{dp.metrics['measured_us']:.1f}us (modelled "
+                      f"{head.metrics['bound_s'] * 1e6:.1f}us) "
+                      f"[{dp.metrics['backend']}: {dp.metrics['device_name']}]")
+            else:
+                print(f"measurement of {point.key()} -> {dp.status}: "
+                      f"{dp.reason}")
+        print(f"measured tier: {evaluator.measured_count} timed, "
+              f"{evaluator.measured_replayed} replayed from cache")
+
+    if args.report:
+        from repro_torch.launch.ioutil import write_json_atomic
+
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        write_json_atomic(Path(args.report), report)
+        print(f"report -> {args.report}")
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,99 @@
+"""Pluggable search-strategy protocol (SECDA-DSE's interchangeable engines).
+
+Counterpart of ``repro/search/base.py``, copied with what the greedy
+kernel-cell loop uses. A :class:`SearchStrategy` is anything with
+
+    propose(state)  -> candidates to evaluate this iteration
+    observe(dps)    -> ingest the evaluated results (positive AND negative)
+
+The loop owns dedupe, surrogate ranking, evaluation and DB appends;
+strategies only decide *where to look next*. Every candidate carries a
+provenance ``source`` tag that lands in the cost DB's ``source`` field.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Protocol, Sequence, runtime_checkable
+
+import numpy as np
+
+from repro_torch.core.cost_db import CostDB, DataPoint, featurize
+from repro_torch.core.design_space import KernelTemplate, PlanPoint
+
+
+@dataclass(frozen=True)
+class Candidate:
+    """A proposed design plus its provenance (recorded as DB ``source``)."""
+
+    point: PlanPoint
+    source: str
+
+
+@dataclass
+class SearchState:
+    """Read-only view of the loop's state handed to strategies each iteration."""
+
+    arch: str
+    shape: str
+    cfg: Any
+    cell: Any
+    template: KernelTemplate
+    db: CostDB
+    iteration: int
+    budget: int
+    incumbent: Optional[DataPoint]
+    pool: List[DataPoint] = field(default_factory=list)
+    cost_model: Any = None  # Optional[CostModel]
+    workload: Dict[str, float] = field(default_factory=dict)
+    # the evaluator's mesh name, for mesh-scoped DB lookups
+    mesh: Optional[str] = None
+
+
+@runtime_checkable
+class SearchStrategy(Protocol):
+    """propose(state) -> candidates; observe(datapoints) -> None."""
+
+    name: str
+
+    def propose(self, state: SearchState) -> List[Candidate]:
+        """Return candidate designs for this iteration. May over-propose:
+        the loop dedupes against measured DB keys, surrogate-ranks, and
+        truncates to ``state.budget``. Must be deterministic given the
+        strategy's seed, the state, and the DB contents."""
+        ...
+
+    def observe(self, datapoints: Sequence[DataPoint]) -> None:
+        """Ingest every evaluated result of the iteration. Called exactly
+        once per loop iteration, after the batch lands in the DB."""
+        ...
+
+
+def point_of(dp: DataPoint) -> PlanPoint:
+    """A DataPoint's design, stripped of the derived ``__key__`` entry."""
+    return PlanPoint(dims={k: v for k, v in dp.point.items() if k != "__key__"})
+
+
+def rank_candidates(state: SearchState,
+                    cands: Sequence[Candidate]) -> List[Candidate]:
+    """Surrogate pre-ranking (cheapest-predicted-bound first); insertion
+    order when the model is absent or untrained."""
+    cm = state.cost_model
+    if cm is None or not getattr(cm, "trained", False) or not cands:
+        return list(cands)
+    feats = np.stack([featurize(dict(c.point.dims), state.workload)
+                      for c in cands])
+    order = cm.rank_candidates(feats)
+    return [cands[i] for i in order]
+
+
+def select_candidates(state: SearchState, cands: Sequence[Candidate],
+                      ) -> List[Candidate]:
+    """Dedupe against the cell's *measured* design keys and in-batch,
+    surrogate-rank, truncate to the iteration budget."""
+    seen = state.db.keys(state.arch, state.shape, include_pruned=False)
+    uniq: Dict[str, Candidate] = {}
+    for c in cands:
+        k = c.point.key()
+        if k not in seen and k not in uniq:
+            uniq[k] = c
+    return rank_candidates(state, list(uniq.values()))[: state.budget]

@@ -1,0 +1,50 @@
+"""repro_torch rmsnorm: the plain version against the Pallas kernel
+(interpret mode) over the full legal tile grid, odd row count included."""
+import numpy as np
+import pytest
+import torch
+from torch_parity import draw, grid_cases, max_err
+
+from repro.kernels import ops as jops
+from repro_torch.core.kernel_space import KERNEL_SHAPE_BY_NAME, KernelShape
+from repro_torch.kernels import ops
+from repro_torch.kernels.conformance import tolerance
+from repro_torch.kernels.rmsnorm import rmsnorm_plain, smem_bytes
+
+SHAPES = [KERNEL_SHAPE_BY_NAME["rms_512x512_f32"],
+          KERNEL_SHAPE_BY_NAME["rms_1kx256_bf16"],
+          KernelShape("rms_odd_173x96_f32", "rmsnorm", {"rows": 173, "d": 96},
+                      "float32")]
+
+
+@pytest.mark.parametrize("shape,dims", grid_cases(SHAPES))
+def test_rmsnorm_plain_matches_pallas(shape, dims):
+    rng = np.random.default_rng(11)
+    rows, d = shape.params["rows"], shape.params["d"]
+    xj, xt = draw(rng, rows, d, dtype=shape.dtype)
+    wj, wt = draw(rng, d, dtype=shape.dtype)
+    want = jops.rmsnorm(xj, wj, block_rows=dims["block_rows"], interpret=True)
+    got = rmsnorm_plain(xt, wt, block_rows=dims["block_rows"])
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    assert max_err(got, want) <= tolerance("rmsnorm", shape.dtype)
+
+
+def test_ops_rmsnorm_flattens_leading_dims_like_the_reference():
+    rng = np.random.default_rng(3)
+    xj, xt = draw(rng, 2, 3, 64)
+    wj, wt = draw(rng, 64)
+    want = jops.rmsnorm(xj, wj, block_rows=4, interpret=True)
+    got = ops.rmsnorm(xt, wt, block_rows=4)
+    assert got.shape == (2, 3, 64)
+    assert max_err(got, want) <= tolerance("rmsnorm", "float32")
+
+
+def test_rmsnorm_smem_is_w_and_one_row_in_f32():
+    assert smem_bytes(4096) == 4 * (2 * 4096 + 33)
+
+
+def test_rmsnorm_cuda_refuses_cpu_tensors():
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(torch.ones(4, 8), torch.ones(8))
