@@ -7,21 +7,28 @@ Run from the root of a checkout on a machine with an H100 (the build needs
 
 1. the card (``nvidia-smi`` name and power limit, capability), the
    toolchain, and the kernels' build from ``src/repro_torch/kernels/csrc``;
-2. every legal tile point of each CI shape and of each full-width shape,
-   through the kernel and through its plain torch version on the card: the
-   points the Hopper resource model calls feasible must launch and agree
-   row by row within ``conformance.PLAIN_REL`` of each row's largest value,
-   the others must be refused;
+2. every legal tile point of each CI shape, of an odd shape per kernel
+   and of each full-width shape, through the kernel and through its plain
+   torch version on the card: the points the Hopper resource model calls
+   feasible must launch and agree row by row within
+   ``conformance.PLAIN_REL`` of each row's largest value (for the SSD scan
+   y and the final state, with and without an ``initial_state``), the
+   others must be refused;
 3. the main path, ``repro_torch.launch.dse`` once per kernel on its
-   full-width shape (greedy, 2 iterations, budget 3, the 2 best measured):
-   launch counts are set to 0 just before each run and read just after,
-   rows must be gate-checked on the card and measured rows must say
-   ``backend: cuda``; then with ``REPRO_KERNEL_INJECT_BAD`` naming the
-   default point, that point must become an ``infeasible`` row;
+   full-width shape (vecmul and rmsnorm: greedy, 2 iterations; flash
+   attention and the SSD scan: the default ensemble with the surrogate
+   gate at 3.0, 3 iterations; budget 3 and the 2 best measured by the
+   promotion ladder for all): launch counts are set to 0 just before each
+   run and read just after, rows must be gate-checked on the card and
+   measured rows must say ``backend: cuda``, and the gate's state is
+   printed (with 4-6 feasible points the gate's calibration guard never
+   arms it here, so these cells do not show what it prunes); then with ``REPRO_KERNEL_INJECT_BAD`` naming the default point,
+   that point must become an ``infeasible`` row;
 4. at each full-width default point, the kernel's, the plain version's and
-   one PyTorch library call's times from CUDA events, beside the roofline
-   bound; then the flash kernel's time at every feasible full-width tile,
-   beside the resource model's estimate.
+   (where one exists) one PyTorch library call's times from CUDA events,
+   beside the roofline bound; then the flash kernel's time at every
+   feasible full-width tile and the SSD scan's at every chunk, beside the
+   resource model's estimate.
 
 It prints a JSON line of per-kernel results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
@@ -93,6 +100,7 @@ def main() -> None:
     from repro_torch.kernels import _build, conformance, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import vecmul as vm
     from repro_torch.launch import dse
 
@@ -109,17 +117,27 @@ def main() -> None:
           flush=True)
 
     full = {"vecmul": "vec_16m_f32", "rmsnorm": "rms_llama3_8b_8kx4096_bf16",
-            "flash_attention": "attn_llama3_8b_s4096_bf16"}
-    modules = {"vecmul": vm, "rmsnorm": rn, "flash_attention": fa}
+            "flash_attention": "attn_llama3_8b_s4096_bf16",
+            "ssd_scan": "ssd_mamba2_780m_b8_s4096_bf16"}
+    modules = {"vecmul": vm, "rmsnorm": rn, "flash_attention": fa, "ssd_scan": ssd}
 
     # ---- phase 2: every legal tile point, kernel against plain version ----
     odd = [KernelShape("rms_odd_173x96_f32", "rmsnorm", {"rows": 173, "d": 96}, "float32"),
-           KernelShape("vec_odd_5000_bf16", "vecmul", {"L": 5000}, "bfloat16")]
+           KernelShape("vec_odd_5000_bf16", "vecmul", {"L": 5000}, "bfloat16"),
+           KernelShape("ssd_odd_b2_s96_f32", "ssd_scan",
+                       {"b": 2, "s": 96, "nh": 3, "dh": 24, "N": 40}, "float32")]
     shapes = [s for s in CI_KERNEL_SHAPES if s.kernel in full] + odd + \
         [KERNEL_SHAPE_BY_NAME[n] for n in full.values()]
     for shape in shapes:
         inputs = conformance.make_inputs(shape, device=dev)
         rel = conformance.PLAIN_REL[inputs[0].dtype]
+        # the SSD scan also threads a carried state in: both ways, each point
+        variants = [None]
+        if shape.kernel == "ssd_scan":
+            p = shape.params
+            gen = torch.Generator(device=dev).manual_seed(0)
+            variants.append(0.3 * torch.randn(p["b"], p["nh"], p["dh"], p["N"],
+                                              generator=gen, device=dev))
         n_ok = n_refused = 0
         worst = None
         for dims in tile_grid(shape):
@@ -132,37 +150,59 @@ def main() -> None:
                     continue
                 fail(f"{shape.name} {dims}: the model calls it infeasible, "
                      f"but the card launched it")
-            got = conformance.run_candidate(shape, dims, inputs)
-            agree = conformance.agree_with_plain(
-                got, conformance.run_plain(shape, dims, inputs))
-            if not agree["passed"]:
-                fail(f"{shape.name} {dims}: kernel vs plain {agree}")
-            if worst is None or agree["ratio"] > worst["ratio"]:
-                worst = agree
-            n_ok += 1
-        print(f"grid {shape.name}: {n_ok} feasible points agree with the plain "
+            for s0 in variants:
+                if s0 is None:
+                    got = conformance.run_candidate(shape, dims, inputs)
+                    want = conformance.run_plain(shape, dims, inputs)
+                else:
+                    got = ssd.ssd_scan_cuda(*inputs, chunk=dims["chunk"], initial_state=s0)
+                    want = ssd.ssd_scan_plain(*inputs, chunk=dims["chunk"], initial_state=s0)
+                agree = conformance.agree_with_plain(got, want)
+                if not agree["passed"]:
+                    fail(f"{shape.name} {dims} initial_state={s0 is not None}: "
+                         f"kernel vs plain {agree}")
+                if worst is None or agree["ratio"] > worst["ratio"]:
+                    worst = agree
+                n_ok += 1
+        print(f"grid {shape.name}: {n_ok} feasible runs "
+              f"({len(variants)} per point) agree with the plain "
               f"version row by row within {rel:.3g} of each row's max |out| "
               f"(worst row: err/limit {worst['ratio']:.3g}, limit {worst['limit']:.3g}; "
               f"max|err| {worst['max_abs_err']:.3g}; mean |out| {worst['mean_abs']:.3g}); "
               f"{n_refused} infeasible points refused", flush=True)
-        del inputs
+        del inputs, variants
 
     # ---- phase 3: the main path, one DSE cell per kernel at full width ----
+    search = {
+        "vecmul": ["--strategy", "greedy", "--iterations", "2"],
+        "rmsnorm": ["--strategy", "greedy", "--iterations", "2"],
+        "flash_attention": ["--strategy", "ensemble", "--gate-factor", "3.0",
+                            "--iterations", "3"],
+        "ssd_scan": ["--strategy", "ensemble", "--gate-factor", "3.0",
+                     "--iterations", "3"],
+    }
     launches = {}
     for kernel, shape_name in full.items():
         db_dir = OUT / kernel
         shutil.rmtree(db_dir, ignore_errors=True)
         argv = ["--space", "kernels", "--arch", kernel, "--shape", shape_name,
-                "--strategy", "greedy", "--iterations", "2", "--budget", "3",
-                "--measure-top-k", "2", "--db", str(db_dir / "cost_db.jsonl")]
+                *search[kernel], "--budget", "3", "--measure-top-k", "2",
+                "--db", str(db_dir / "cost_db.jsonl")]
         ops.reset_launch_counts()
         t = time.perf_counter()
         report = dse.main(argv)
         counts = ops.launch_counts()
         launches[kernel] = counts[kernel]
         rows = CostDB(db_dir / "cost_db.jsonl").all()
-        print(f"main path {kernel}/{shape_name}: {time.perf_counter() - t:.1f} s, "
-              f"{len(rows)} rows, launches {counts}", flush=True)
+        statuses = {st: sum(d.status == st for d in rows)
+                    for st in sorted({d.status for d in rows})}
+        print(f"main path {kernel}/{shape_name} ({' '.join(search[kernel])}): "
+              f"{time.perf_counter() - t:.1f} s, {len(rows)} rows {statuses}, "
+              f"launches {counts}", flush=True)
+        if "gate" in report:
+            g = report["gate"]
+            print(f"gate {kernel}: active={g['active']} pruned={g['pruned']} "
+                  f"val_rmse={g['val_rmse']:.3f} n={g['n']}", flush=True)
         if counts[kernel] == 0:
             fail(f"{kernel}: the main path launched its kernel no time")
         if any(d.status == "error" for d in rows):
@@ -215,6 +255,18 @@ def main() -> None:
             lib = lambda: F.rms_norm(x, (p["d"],), w, eps=1e-5)  # noqa: E731
             nbytes = (2 * x.numel() + w.numel()) * x.element_size()
             flops = 4 * x.numel()
+        elif kernel == "ssd_scan":
+            x, dt, A, B, C = inputs
+            run = lambda: ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=dims["chunk"])  # noqa: E731
+            lib = None  # no one PyTorch call computes the SSD scan
+            L, N, nh, dh = dims["chunk"], p["N"], p["nh"], p["dh"]
+            n_chunks = p["b"] * p["s"] // L
+            pairs = L * (L + 1) // 2  # (l, s) pairs with s <= l in a chunk
+            # C.B^T and the intra-chunk products over the causal pairs, the
+            # chunk's own state and the inter-chunk term
+            flops = n_chunks * (2 * pairs * (N + nh * dh) + 4 * L * nh * dh * N)
+            nbytes = (2 * x.numel() + dt.numel() + B.numel() + C.numel()) * x.element_size() \
+                + A.numel() * 4 + p["b"] * nh * dh * N * 4
         else:
             q, k, v = inputs
             run = lambda: fa.flash_attention_cuda(  # noqa: E731
@@ -239,7 +291,7 @@ def main() -> None:
         ms = time_ms(run)
         plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, inputs),
                            budget_s=0.5, max_reps=10)
-        library_ms = time_ms(lib)
+        library_ms = time_ms(lib) if lib is not None else None
         mod = modules[kernel]
         results.append({
             "name": kernel, "route": "cuda", "source": mod.SOURCE,
@@ -248,8 +300,9 @@ def main() -> None:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
         })
+        lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         print(f"time {kernel} {shape_name} {dims}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms "
               f"({results[-1]['bound_by']}), {100 * bound_ms / ms:.1f}% of bound "
               f"[{card}]", flush=True)
         del inputs
@@ -269,6 +322,29 @@ def main() -> None:
               f"{res.est_latency_us / 1e3:.4f} ms, smem {res.vmem_bytes} B, "
               f"{res.blocks_per_sm} blocks/SM [{card}]", flush=True)
     del q, k, v
+
+    # and the SSD scan's at every chunk, with each of its three launches'
+    # share from the profiler (the mean over 3 calls)
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = KERNEL_SHAPE_BY_NAME[full["ssd_scan"]]
+    inputs = conformance.make_inputs(shape, device=dev)
+    for dims in tile_grid(shape):
+        res = kernel_resources(shape, dims)
+        run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=dims["chunk"])  # noqa: E731
+        ms = time_ms(run, max_reps=20)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        split = {e.key.split("<")[0].split()[-1]: e.device_time_total / e.count / 1e3
+                 for e in prof.key_averages() if e.key.split("<")[0].split()[-1]
+                 in ("ssd_cumsum_kernel", "ssd_state_kernel", "ssd_intra_kernel")}
+        print(f"sweep ssd_scan {dims}: kernel {ms:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items()))
+              + f"), modelled {res.est_latency_us / 1e3:.4f} ms, smem {res.vmem_bytes} B, "
+              f"{res.blocks_per_sm} intra blocks/SM [{card}]", flush=True)
+    del inputs
 
     print(json.dumps({"kernels": results}), flush=True)
     print(card, flush=True)

@@ -98,6 +98,10 @@ def featurize(point: Dict[str, Any], workload: Dict[str, float]) -> np.ndarray:
     return np.asarray(feats, np.float32)
 
 
+#: objectives where larger is better (every other objective is minimized)
+MAXIMIZE_OBJECTIVES = frozenset({"flops_util"})
+
+
 def derive_objectives(metrics: Dict[str, Any]) -> Dict[str, float]:
     """Objective vector for one row's metric dict, derived from the metrics
     every evaluator already records (so pre-refactor DB rows rank in Pareto
@@ -294,17 +298,38 @@ class CostDB:
         return [d for d in self.query(arch, shape, mesh=mesh)
                 if d.fidelity == "measured"]
 
-    def training_set(self, split: Optional[str] = None,
+    def iteration_batches(self, arch: str, shape: str,
+                          mesh: Optional[str] = None,
+                          ) -> List[Tuple[int, List[DataPoint]]]:
+        """The cell's rows grouped by loop iteration, ascending, preserving
+        append order within each group: the provenance replay stream
+        ``Ensemble.rebuild_credit`` consumes. Rows with no recorded
+        iteration sort first under index ``-1``."""
+        groups: Dict[int, List[DataPoint]] = {}
+        for d in self.query(arch, shape, mesh=mesh):
+            it = int(d.iteration) if d.iteration is not None else -1
+            groups.setdefault(it, []).append(d)
+        return sorted(groups.items())
+
+    def training_set(self, split: Optional[str] = None, *,
+                     arch: Optional[str] = None, shape: Optional[str] = None,
+                     mesh: Optional[str] = None,
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(features, targets [log10 bound_s], feasible mask) for the surrogate.
 
         ``split``: None = every usable row; ``"train"`` / ``"val"`` = the
         deterministic ~80/20 key-hash partition (see ``_val_row``).
-        ``pruned`` rows are always skipped: they carry only a surrogate
-        *prediction*, never a measured outcome.
+        ``arch``/``shape``/``mesh`` restrict to one cell's rows (the
+        surrogate gate's per-cell calibration). ``pruned`` rows are always
+        skipped: they carry only a surrogate *prediction*, never a
+        measured outcome.
         """
         X, y, feas = [], [], []
         for d in self.all():
+            if ((arch is not None and d.arch != arch)
+                    or (shape is not None and d.shape != shape)
+                    or (mesh is not None and d.mesh != mesh)):
+                continue
             wl = d.metrics.get("workload")
             if not wl or d.status == "pruned":
                 continue

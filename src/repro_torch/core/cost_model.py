@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.cost_db import CostDB
+from repro_torch.core.cost_db import CostDB, featurize
 
 HIDDEN = (64, 64)
 
@@ -101,6 +101,49 @@ class CostModel(nn.Module):
         self.trained = True
         with torch.no_grad():
             return float(_loss(*self(Xt), yt, ft))
+
+    def validation_error(self, db: CostDB, *, arch: Optional[str] = None,
+                         shape: Optional[str] = None,
+                         mesh: Optional[str] = None) -> Tuple[float, int]:
+        """(RMSE in log10-bound decades, n rows) on the held-out ``val``
+        split, feasible rows only. ``arch``/``shape``/``mesh`` restrict to
+        one cell's rows (the surrogate gate's per-cell guard). (nan, 0)
+        when there is no such row: the gate reads that as uncalibrated."""
+        X, y, feas = db.training_set(split="val", arch=arch, shape=shape,
+                                     mesh=mesh)
+        mask = feas > 0.5
+        if not mask.any():
+            return float("nan"), 0
+        pred, _ = self.predict(X[mask])
+        rmse = float(np.sqrt(np.mean((pred - y[mask]) ** 2)))
+        return rmse, int(mask.sum())
+
+    def measured_calibration(self, db: CostDB, *, arch: Optional[str] = None,
+                             shape: Optional[str] = None,
+                             mesh: Optional[str] = None,
+                             ) -> Tuple[float, int, float]:
+        """Prediction against the measured tier's times: ``(rmse, n,
+        offset)``. ``offset`` is the mean of ``log10(measured_s) -
+        predicted`` (launch overhead and the model's absolute error are a
+        constant scale the ladder does not care about), and ``rmse`` the
+        spread of the residual around it, in decades. (nan, 0, nan) with no
+        usable measured row or an untrained model."""
+        if not self.trained:
+            return float("nan"), 0, float("nan")
+        feats, actual = [], []
+        for d in db.measured_rows(arch, shape, mesh=mesh):
+            ms = d.metrics.get("measured_s")
+            if d.status != "ok" or not ms or ms <= 0:
+                continue
+            feats.append(featurize(d.point, d.metrics["workload"]))
+            actual.append(np.log10(ms))
+        if not feats:
+            return float("nan"), 0, float("nan")
+        pred, _ = self.predict(np.stack(feats))
+        resid = np.asarray(actual) - pred
+        offset = float(np.mean(resid))
+        rmse = float(np.sqrt(np.mean((resid - offset) ** 2)))
+        return rmse, len(feats), offset
 
     def rank_candidates(self, feats: np.ndarray) -> np.ndarray:
         """Indices sorted by predicted bound, infeasible-penalised."""

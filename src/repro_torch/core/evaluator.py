@@ -4,6 +4,9 @@ Counterpart of ``repro/core/evaluator.py::KernelEvaluator`` together with
 the parts of its ``Evaluator`` base it uses (the caches, the counters and
 the row plumbing). The design space is one kernel's tile dims:
 
+* surrogate gate (optional): a candidate the gate predicts slower than
+  its threshold times the incumbent becomes a ``status="pruned"`` row with
+  the prediction, and is never run.
 * evaluation tier: run the kernel with the candidate's tiles on
   deterministic inputs (the Hopper kernel on the card, the plain version
   when the caller asked for the CPU), hold it against the ``kernels.ref``
@@ -11,7 +14,10 @@ the row plumbing). The design space is one kernel's tile dims:
   from the Hopper resource model's ``est_latency_us``. A candidate with the
   wrong answer becomes a ``status="infeasible"`` row with ``max_abs_err``
   recorded, never a winner. A tile the card cannot launch is rejected by
-  the template before it runs.
+  the template before it runs. Inputs are made once per batch, and the
+  oracle runs once per batch for each set of dims it reads
+  (``conformance.reference_key``): the SSD oracle is a 4096-step
+  recurrence at full width.
 * measured tier: ``measure`` times real launches through
   ``launch.measure.measure_kernel_cell`` and re-checks correctness on the
   output; ``measured_cache`` replay keeps measurement exactly-once with
@@ -50,6 +56,7 @@ class KernelEvaluator:
     torch_device: str = "cuda"  # where kernels run: "cuda" or "cpu"
     cache: Optional[DryRunCache] = None
     compile_count: int = 0  # candidates run through the kernel (cache misses)
+    pruned_count: int = 0  # candidates the surrogate gate kept out of the pool
     # tier-2 (measured execution) state — see ``measure``
     measured_cache: Optional[DryRunCache] = None
     measure_runs: int = 3  # timed calls per measurement (min is reported)
@@ -59,11 +66,14 @@ class KernelEvaluator:
     def evaluate_batch(self, arch: str, shape: str,
                        points: Sequence[PlanPoint], *,
                        source: str | Sequence[str] = "explorer",
-                       iteration: int = -1) -> List[DataPoint]:
+                       iteration: int = -1, gate=None,
+                       incumbent_bound: Optional[float] = None,
+                       ) -> List[DataPoint]:
         """Evaluate kernel candidates (order-preserving): template
-        rejections inline, cache hits replayed, then kernel + correctness
-        check + resource-model bound for the rest. ``source`` is one tag
-        for the batch or one per point."""
+        rejections inline, cache hits replayed, surrogate-gate pruning
+        (with ``gate`` and the incumbent's ``incumbent_bound``), then kernel
+        + correctness check + resource-model bound for the rest. ``source``
+        is one tag for the batch or one per point."""
         from repro_torch.kernels import conformance
 
         srcs = ([source] * len(points) if isinstance(source, str)
@@ -95,10 +105,17 @@ class KernelEvaluator:
                 continue
             pending.append((i, point))
 
+        pending = self._gate_prune(gate, pending, wl=wl,
+                                   incumbent_bound=incumbent_bound,
+                                   srcs=srcs, arch=arch, shape=shape,
+                                   iteration=iteration, results=results)
+
         if pending:
             inputs = conformance.make_inputs(kshape, device=self.torch_device)
+            wants: Dict[Tuple, Any] = {}
             for i, point in pending:
-                rec = self._run_kernel(kshape, point, inputs, conformance)
+                rec = self._run_kernel(kshape, point, inputs, conformance,
+                                       wants)
                 self.compile_count += 1
                 # errors stay retryable; correctness verdicts are
                 # deterministic and replay forever
@@ -107,6 +124,41 @@ class KernelEvaluator:
                 base = self._base(arch, shape, point, srcs[i], iteration)
                 results[i] = self._kernel_rec_to_datapoint(rec, wl, base)
         return results  # type: ignore[return-value]
+
+    def _gate_prune(self, gate, pending: List[Tuple[int, PlanPoint]], *,
+                    wl: Dict[str, float], incumbent_bound: Optional[float],
+                    srcs: Sequence[str], arch: str, shape: str,
+                    iteration: int,
+                    results: List[Optional[DataPoint]],
+                    ) -> List[Tuple[int, PlanPoint]]:
+        """Tier-0 surrogate gate. The gate only sees candidates that would
+        run: cache hits are free and template rejections are already
+        negative points. Pruned candidates are written into ``results`` as
+        ``status="pruned"`` rows with the prediction; returns the
+        still-pending subset."""
+        if gate is None or not pending:
+            return pending
+        verdicts = gate.prune_verdicts([pt for _, pt in pending], wl,
+                                       incumbent_bound)
+        still: List[Tuple[int, PlanPoint]] = []
+        for (i, pt), v in zip(pending, verdicts):
+            if v is None:
+                still.append((i, pt))
+                continue
+            pred, pfeas = v
+            self.pruned_count += 1
+            base = self._base(arch, shape, pt, srcs[i], iteration)
+            # the threshold in force, annealing included (part of the gate
+            # protocol: the audit row must match the decision)
+            factor = gate.effective_factor
+            results[i] = DataPoint(
+                **base, status="pruned",
+                reason=(f"surrogate gate: predicted {pred:.3g}s > "
+                        f"{factor:g}x incumbent {incumbent_bound:.3g}s"),
+                metrics={"workload": wl, "predicted_bound_s": pred,
+                         "predicted_p_feasible": pfeas,
+                         "gate_factor": factor})
+        return still
 
     def measure(self, arch: str, shape: str, point: PlanPoint, *,
                 runs: Optional[int] = None,
@@ -179,14 +231,20 @@ class KernelEvaluator:
                     point={**point.to_dict(), "__key__": point.key()},
                     source=source, iteration=iteration)
 
-    def _run_kernel(self, kshape, point: PlanPoint, inputs,
-                    conformance) -> Dict[str, Any]:
+    def _run_kernel(self, kshape, point: PlanPoint, inputs, conformance,
+                    wants: Dict[Tuple, Any]) -> Dict[str, Any]:
         """One evaluation record: correctness check + resources. Never
-        raises — a failed launch is a negative datapoint."""
+        raises — a failed launch is a negative datapoint. ``wants`` holds
+        the oracle's answers on ``inputs`` by ``reference_key``, filled on
+        first need."""
         t0 = time.perf_counter()
         try:
+            key = conformance.reference_key(kshape, point.dims)
+            if key not in wants:
+                wants[key] = conformance.run_reference(kshape, point.dims,
+                                                       inputs)
             check = conformance.check_candidate(kshape, point.dims,
-                                                inputs=inputs)
+                                                inputs=inputs, want=wants[key])
         except Exception as e:  # noqa: BLE001 — negative datapoint
             return {"status": "error", "error": f"{type(e).__name__}: {e}",
                     "trace": traceback.format_exc()[-2000:]}

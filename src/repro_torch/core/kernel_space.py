@@ -4,11 +4,9 @@ Counterpart of ``repro/core/kernel_space.py``, copied (the port imports
 nothing of ``repro``). The pools, the shipped defaults, the six CI shapes
 and the ``kernel:<name>`` arch-column encoding are the reference's as they
 are. The port adds full-width shapes at llama3-8b widths
-(``configs/llama3_8b.py``: d_model 4096, 32 heads, 8 KV heads, d_head 128),
-and :func:`kernel_resources` runs the Hopper resource model.
-
-``ssd_scan`` stays in the pools and the registry, as in the reference, but
-its kernel is not ported yet: :func:`kernel_resources` rejects it.
+(``configs/llama3_8b.py``: d_model 4096, 32 heads, 8 KV heads, d_head 128)
+and at mamba2-780m widths for the SSD scan, and :func:`kernel_resources`
+runs the Hopper resource model.
 """
 from __future__ import annotations
 
@@ -43,10 +41,6 @@ _DEFAULTS: Dict[str, Dict[str, Any]] = {
     "ssd_scan": {"chunk": 256},
     "vecmul": {"block": 1024},
 }
-
-#: kernels with a Hopper kernel in this package
-PORTED_KERNELS: Tuple[str, ...] = ("flash_attention", "rmsnorm", "vecmul")
-
 
 @dataclass(frozen=True)
 class KernelShape:
@@ -85,13 +79,17 @@ CI_KERNEL_SHAPES: Tuple[KernelShape, ...] = (
 )
 
 #: full-width shapes: one llama3-8b prefill of 4096 tokens (attention),
-#: its rmsnorm over 8192 rows of d_model, and a 16M-element vecmul
+#: its rmsnorm over 8192 rows of d_model, one mamba2-780m SSD scan of 8
+#: sequences of 4096 tokens (``configs/mamba2_780m.py``: d_model 1536,
+#: expand 2, head_dim 64 -> 48 heads, d_state 128), and a 16M-element vecmul
 FULL_WIDTH_KERNEL_SHAPES: Tuple[KernelShape, ...] = (
     KernelShape("attn_llama3_8b_s4096_bf16", "flash_attention",
                 {"b": 1, "sq": 4096, "sk": 4096, "h": 32, "kh": 8, "d": 128},
                 "bfloat16"),
     KernelShape("rms_llama3_8b_8kx4096_bf16", "rmsnorm",
                 {"rows": 8192, "d": 4096}, "bfloat16"),
+    KernelShape("ssd_mamba2_780m_b8_s4096_bf16", "ssd_scan",
+                {"b": 8, "s": 4096, "nh": 48, "dh": 64, "N": 128}, "bfloat16"),
     KernelShape("vec_16m_f32", "vecmul", {"L": 16_777_216}, "float32"),
 )
 
@@ -142,17 +140,10 @@ def tile_grid(shape: KernelShape) -> List[Dict[str, Any]]:
             for combo in itertools.product(*(pools[k] for k in keys))]
 
 
-def not_yet_ported(kernel: str) -> str:
-    """The message for a kernel with no Hopper kernel yet."""
-    return f"{kernel}: not yet ported to the H100 (slice 2)"
-
-
 def kernel_resources(shape: KernelShape, dims: Mapping[str, Any],
                      device: DeviceModel = H100_SXM) -> KernelResources:
     """Run the Hopper resource model for one candidate point: the
     feasibility check and latency estimate for kernel cells."""
-    if shape.kernel not in PORTED_KERNELS:
-        raise NotImplementedError(not_yet_ported(shape.kernel))
     fn = RESOURCE_FNS[shape.kernel]
     p = shape.params
     if shape.kernel == "vecmul":
@@ -160,6 +151,9 @@ def kernel_resources(shape: KernelShape, dims: Mapping[str, Any],
                   itemsize=shape.itemsize, dev=device)
     if shape.kernel == "rmsnorm":
         return fn(p["rows"], p["d"], int(dims["block_rows"]),
+                  itemsize=shape.itemsize, dev=device)
+    if shape.kernel == "ssd_scan":
+        return fn(p["b"], p["s"], p["nh"], p["dh"], p["N"], int(dims["chunk"]),
                   itemsize=shape.itemsize, dev=device)
     return fn(p["b"], p["sq"], p["sk"], p["h"], p["kh"], p["d"],
               int(dims["block_q"]), int(dims["block_k"]),

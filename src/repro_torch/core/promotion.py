@@ -1,12 +1,13 @@
 """Pure decision function of the promotion ladder (tier-2 policy).
 
 Counterpart of ``repro/core/promotion.py``, copied with what the
-kernel-cell path uses: which leaderboard heads earn a measured run. A pure
-function: no clock, no RNG, no I/O.
+kernel-cell path uses: which leaderboard heads earn a measured run, and
+which duplicate measured row is canonical. Pure functions: no clock, no
+RNG, no I/O.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Set
+from typing import Iterable, List, Optional, Sequence, Set
 
 from repro_torch.core.cost_db import DataPoint
 
@@ -35,3 +36,16 @@ def plan_promotions(heads: Sequence[DataPoint], measured_keys: Set[str], *,
     if budget_left is not None:
         chosen = chosen[:max(int(budget_left), 0)]
     return chosen
+
+
+def select_measured_row(rows: Iterable[DataPoint]) -> Optional[DataPoint]:
+    """The canonical measured row among duplicates: earliest-wins by
+    ``(ts, serialized form)``, so any subset of the same rows reports the
+    same measurement. ``None`` when ``rows`` is empty."""
+    best: Optional[DataPoint] = None
+    best_key = None
+    for d in rows:
+        k = (d.ts, d.to_json())
+        if best is None or k < best_key:
+            best, best_key = d, k
+    return best

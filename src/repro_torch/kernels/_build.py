@@ -47,6 +47,7 @@ SIGNATURES = {
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _I, _I, _P],
+    "ssd_scan_launch": [_P] * 10 + [_I] * 13 + [_P],
 }
 
 #: launches per kernel: each CUDA wrapper adds one where it launches its

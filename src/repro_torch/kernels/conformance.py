@@ -13,7 +13,8 @@ Tolerances are the reference's: absolute max-|error| per (kernel, dtype).
 Those are loose enough for the oracle's different order of operations and
 precision; a kernel against its own plain version (same tiles, same f32
 arithmetic, one rounding at the end) is held much tighter, row by row, by
-:func:`agree_with_plain`.
+:func:`agree_with_plain`. ``ssd_scan`` returns ``(y, final_state)`` and
+both halves are checked.
 
 Fault-injection hook: ``REPRO_KERNEL_INJECT_BAD`` holds
 ``<kernel>:<dim>=<value>`` (e.g. ``vecmul:block=1024``); a candidate of that
@@ -24,15 +25,16 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core.kernel_space import KernelShape, not_yet_ported
+from repro_torch.core.kernel_space import KernelShape
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_plain
 from repro_torch.kernels.vecmul import vecmul_plain
 
 #: absolute max-|error| threshold per (kernel, dtype)
@@ -59,6 +61,9 @@ INJECT_ENV = "REPRO_KERNEL_INJECT_BAD"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+#: a kernel's output: one tensor, or ssd_scan's (y, final_state)
+Output = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
 
 def tolerance(kernel: str, dtype: str) -> float:
     """The gate threshold for one (kernel, dtype) pair."""
@@ -74,9 +79,11 @@ def make_inputs(shape: KernelShape, seed: int = 0,
     dt = _DTYPES[shape.dtype]
     p = shape.params
 
+    def to(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(a).to(device=device).to(dtype)
+
     def arr(*dims):
-        a = torch.from_numpy(0.3 * rng.standard_normal(dims))
-        return a.to(device=device).to(dt)
+        return to(0.3 * rng.standard_normal(dims), dt)
 
     if shape.kernel == "vecmul":
         return arr(p["L"]), arr(p["L"])
@@ -87,7 +94,12 @@ def make_inputs(shape: KernelShape, seed: int = 0,
                 arr(p["b"], p["sk"], p["kh"], p["d"]),
                 arr(p["b"], p["sk"], p["kh"], p["d"]))
     if shape.kernel == "ssd_scan":
-        raise NotImplementedError(not_yet_ported(shape.kernel))
+        x = arr(p["b"], p["s"], p["nh"], p["dh"])
+        dt_ = to(0.1 + 0.2 * rng.random((p["b"], p["s"], p["nh"])), dt)
+        A = to(-(0.5 + rng.random(p["nh"])), torch.float32)
+        B = arr(p["b"], p["s"], p["N"])
+        C = arr(p["b"], p["s"], p["N"])
+        return x, dt_, A, B, C
     raise KeyError(f"unknown kernel {shape.kernel!r}")
 
 
@@ -125,9 +137,11 @@ def _maybe_inject_bad(kernel: str, dims: Mapping[str, Any], out: torch.Tensor):
 
 
 def run_candidate(shape: KernelShape, dims: Mapping[str, Any],
-                  inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+                  inputs: Tuple[torch.Tensor, ...]) -> Output:
     """Run the kernel with the candidate's tile dims on ``inputs``' device
-    (the Hopper kernel for CUDA tensors, the plain version for CPU ones)."""
+    (the Hopper kernel for CUDA tensors, the plain version for CPU ones).
+    For ssd_scan, the ``(y, final_state)`` pair with any injection applied
+    to ``y`` only, as in the reference."""
     if shape.kernel == "vecmul":
         out = ops.vecmul(*inputs, block=int(dims["block"]))
     elif shape.kernel == "rmsnorm":
@@ -137,14 +151,15 @@ def run_candidate(shape: KernelShape, dims: Mapping[str, Any],
                                   block_q=int(dims["block_q"]),
                                   block_k=int(dims["block_k"]))
     elif shape.kernel == "ssd_scan":
-        raise NotImplementedError(not_yet_ported(shape.kernel))
+        y, state = ops.ssd_scan(*inputs, chunk=int(dims["chunk"]))
+        return _maybe_inject_bad(shape.kernel, dims, y), state
     else:
         raise KeyError(f"unknown kernel {shape.kernel!r}")
     return _maybe_inject_bad(shape.kernel, dims, out)
 
 
 def run_plain(shape: KernelShape, dims: Mapping[str, Any],
-              inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+              inputs: Tuple[torch.Tensor, ...]) -> Output:
     """The kernel's plain torch version with the candidate's tile dims, on
     ``inputs``' device: what a kernel is held against on the card."""
     if shape.kernel == "vecmul":
@@ -156,19 +171,27 @@ def run_plain(shape: KernelShape, dims: Mapping[str, Any],
                                      block_q=int(dims["block_q"]),
                                      block_k=int(dims["block_k"]))
     if shape.kernel == "ssd_scan":
-        raise NotImplementedError(not_yet_ported(shape.kernel))
+        return ssd_scan_plain(*inputs, chunk=int(dims["chunk"]))
     raise KeyError(f"unknown kernel {shape.kernel!r}")
 
 
-def agree_with_plain(got: torch.Tensor, want: torch.Tensor) -> Dict[str, Any]:
+def agree_with_plain(got: Output, want: Output) -> Dict[str, Any]:
     """Hold a kernel's output against its plain version's, row by row over
-    the last axis (vecmul element by element): a row's max |got - want| may
-    be at most ``PLAIN_REL[dtype]`` times the row's largest |want|.
+    the last axis (vecmul element by element; ssd_scan's y over dh and its
+    final state over N): a row's max |got - want| may be at most
+    ``PLAIN_REL[dtype]`` times the row's largest |want|, the dtype being
+    that output's own.
 
     Returns ``max_abs_err``; ``ratio``, the worst row's error over its
     limit (at most 1 to pass); ``limit``, that row's limit; ``mean_abs``,
-    the mean |want| (the typical output value); and ``passed``.
+    the mean |want| (the typical output value) of the part with the worst
+    row; and ``passed``.
     """
+    if isinstance(want, tuple):
+        parts = [agree_with_plain(g, w) for g, w in zip(got, want)]
+        worst = max(parts, key=lambda r: (math.isnan(r["ratio"]), r["ratio"]))
+        return {**worst, "max_abs_err": max(r["max_abs_err"] for r in parts),
+                "passed": all(r["passed"] for r in parts)}
     g, w = got.float(), want.float()
     if w.numel() == 0:
         return {"max_abs_err": 0.0, "ratio": 0.0, "limit": 0.0,
@@ -186,8 +209,17 @@ def agree_with_plain(got: torch.Tensor, want: torch.Tensor) -> Dict[str, Any]:
             "passed": r <= 1.0}
 
 
+def reference_key(shape: KernelShape, dims: Mapping[str, Any]) -> Tuple:
+    """The tile dims the oracle's answer depends on: ``causal`` for
+    attention, none for the others. Candidates with the same key share
+    one oracle run on the same inputs."""
+    if shape.kernel == "flash_attention":
+        return (bool(dims["causal"]),)
+    return ()
+
+
 def run_reference(shape: KernelShape, dims: Mapping[str, Any],
-                  inputs: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+                  inputs: Tuple[torch.Tensor, ...]) -> Output:
     """The oracle on the same inputs (GQA K/V heads repeated up to the
     query head count; causal flag threaded through for attention)."""
     if shape.kernel == "vecmul":
@@ -202,12 +234,15 @@ def run_reference(shape: KernelShape, dims: Mapping[str, Any],
             v = v.repeat_interleave(g, dim=2)
         return ref.attention_ref(q, k, v, causal=bool(dims["causal"]))
     if shape.kernel == "ssd_scan":
-        raise NotImplementedError(not_yet_ported(shape.kernel))
+        return ref.ssd_ref(*inputs)
     raise KeyError(f"unknown kernel {shape.kernel!r}")
 
 
-def max_abs_error(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Max element-wise |got - want| in float32."""
+def max_abs_error(got: Output, want: Output) -> float:
+    """Max element-wise |got - want| in float32, tuple-aware (ssd_scan's
+    y and final state must both match)."""
+    if isinstance(got, tuple) or isinstance(want, tuple):
+        return max(max_abs_error(g, w) for g, w in zip(got, want))
     if got.numel() == 0:
         return 0.0
     return float((got.float() - want.float()).abs().max().item())
@@ -215,18 +250,22 @@ def max_abs_error(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def check_candidate(shape: KernelShape, dims: Mapping[str, Any], *,
                     inputs: Optional[Tuple[torch.Tensor, ...]] = None,
+                    want: Optional[Output] = None,
                     seed: int = 0,
                     device: torch.device | str = "cpu") -> Dict[str, Any]:
     """The correctness gate: run candidate and oracle, compare.
 
     Returns ``{"max_abs_err", "tol", "passed"}``; callers turn a failed
     check into a ``status="infeasible"`` DataPoint. Without ``inputs``
-    they are made on ``device``.
+    they are made on ``device``; ``want``, the oracle's answer on these
+    inputs for this candidate's :func:`reference_key`, is computed here
+    unless the caller already has it.
     """
     if inputs is None:
         inputs = make_inputs(shape, seed=seed, device=device)
     got = run_candidate(shape, dims, inputs)
-    want = run_reference(shape, dims, inputs)
+    if want is None:
+        want = run_reference(shape, dims, inputs)
     err = max_abs_error(got, want)
     tol = tolerance(shape.kernel, shape.dtype)
     return {"max_abs_err": err, "tol": tol, "passed": bool(err <= tol)}

@@ -8,17 +8,18 @@ kernel launch adds one to that kernel's count in :func:`launch_counts`.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import vecmul as _vm
 
 #: the ported kernels, in the order the port brought them up
-KERNELS = ("vecmul", "rmsnorm", "flash_attention")
+KERNELS = ("vecmul", "rmsnorm", "flash_attention", "ssd_scan")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -56,3 +57,14 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
                                         block_k=block_k, q_offset=q_offset)
     return _fa.flash_attention_plain(q, k, v, causal=causal, block_q=block_q,
                                      block_k=block_k, q_offset=q_offset)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256,
+             initial_state: Optional[torch.Tensor] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan; returns (y [b,s,nh,dh], final_state [b,nh,dh,N] f32)."""
+    if x.is_cuda:
+        return _ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=initial_state)
+    return _ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk,
+                               initial_state=initial_state)

@@ -1,7 +1,7 @@
 """Plain torch oracles for the port's kernels (the ``ref.py`` contract).
 
 Counterpart of ``repro/kernels/ref.py``: the correctness gate holds every
-candidate tile against these. ``ssd_ref`` comes with the SSD kernel.
+candidate tile against these.
 """
 from __future__ import annotations
 
@@ -36,3 +36,25 @@ def attention_ref(q, k, v, *, causal: bool = True,
         s = s.masked_fill(~mask[None, None], -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
+
+
+def ssd_ref(x, dt, A, B, C, initial_state=None):
+    """Exact sequential SSD recurrence (the oracle for ``ssd_scan``).
+
+    x: [b, s, nh, dh]; dt: [b, s, nh] (post-softplus); A: [nh] negative;
+    B, C: [b, s, N]. Returns (y [b,s,nh,dh] in x's dtype, final_state
+    [b,nh,dh,N] in f32), one step per position as in the reference.
+    """
+    b, s, nh, dh = x.shape
+    N = B.shape[-1]
+    h = (torch.zeros(b, nh, dh, N, dtype=torch.float32, device=x.device)
+         if initial_state is None else initial_state.float().clone())
+    A32, dt32, B32, C32 = A.float(), dt.float(), B.float(), C.float()
+    ys = torch.empty(b, s, nh, dh, dtype=torch.float32, device=x.device)
+    for t in range(s):
+        dA = torch.exp(dt32[:, t] * A32[None, :])  # [b, nh]
+        h = h * dA[..., None, None] + (
+            (dt32[:, t, :, None] * x[:, t].float())[..., None]
+            * B32[:, t, None, None, :])
+        ys[:, t] = torch.einsum("bhpn,bn->bhp", h, C32[:, t])
+    return ys.to(x.dtype), h

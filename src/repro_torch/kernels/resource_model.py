@@ -24,10 +24,12 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
+from typing import Tuple
 
 from repro_torch.core.device import H100_SXM, DeviceModel
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import vecmul as _vm
 
 
@@ -56,18 +58,28 @@ def blocks_per_sm(smem: int, threads: int, dev: DeviceModel) -> int:
     return max(0, min(by_smem, by_threads, dev.max_blocks_per_sm))
 
 
-def _mk(name, *, smem, threads, n_blocks, flops, nbytes, aligned_mma,
-        aligned_vec, dev: DeviceModel, notes="") -> KernelResources:
-    feasible = (smem <= dev.smem_per_block
-                and 1 <= threads <= dev.max_threads_per_block)
+def _launch_time(*, smem, threads, n_blocks, flops, nbytes,
+                 dev: DeviceModel) -> Tuple[float, float]:
+    """(one block's seconds, the launch's seconds): blocks in waves over
+    the SMs, the card's rates split evenly among the blocks resident at
+    once, and a block never getting more than one SM's share."""
     occ = max(blocks_per_sm(smem, threads, dev), 1)
     resident = dev.sm_count * occ
     waves = math.ceil(n_blocks / resident)
-    # the card's rates split evenly among the blocks resident at once, and
-    # a block never gets more than one SM's share
     share = max(min(n_blocks, resident), dev.sm_count)
     t_block = max(flops / n_blocks / (dev.peak_flops_fp32 / share),
                   nbytes / n_blocks / (dev.hbm_bw / share))
+    return t_block, waves * t_block
+
+
+def _fits(smem: int, threads: int, dev: DeviceModel) -> bool:
+    return smem <= dev.smem_per_block and 1 <= threads <= dev.max_threads_per_block
+
+
+def _mk(name, *, smem, threads, n_blocks, flops, nbytes, aligned_mma,
+        aligned_vec, dev: DeviceModel, notes="") -> KernelResources:
+    t_block, total = _launch_time(smem=smem, threads=threads, n_blocks=n_blocks,
+                                  flops=flops, nbytes=nbytes, dev=dev)
     return KernelResources(
         name=name,
         vmem_bytes=smem,
@@ -75,8 +87,8 @@ def _mk(name, *, smem, threads, n_blocks, flops, nbytes, aligned_mma,
         mxu_aligned=aligned_mma,
         vpu_aligned=aligned_vec,
         est_cycles_per_block=t_block * dev.clock_hz,
-        est_latency_us=waves * t_block * 1e6,
-        feasible=feasible,
+        est_latency_us=total * 1e6,
+        feasible=_fits(smem, threads, dev),
         notes=notes,
         threads=threads,
         blocks_per_sm=blocks_per_sm(smem, threads, dev),
@@ -130,8 +142,61 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
         dev=dev, notes=f"bq={block_q} bk={block_k} d={d} sk={sk} causal={causal}")
 
 
+def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
+                       itemsize: int = 2, dev: DeviceModel = H100_SXM,
+                       ) -> KernelResources:
+    """The three launches of ``csrc/ssd_scan.cu`` at one chunk length,
+    their times added. ``vmem_bytes`` is the larger of the two blocks'
+    shared memory (the intra kernel's, at every chunk of the pool)."""
+    L = min(chunk, s)
+    nc = s // L
+    tl, ps = _ssd.row_tile(L), max(_ssd.state_slice(dh), 1)
+    n_rt = L // tl
+    walked = n_rt * (n_rt + 1) // 2  # s tiles the row tiles of a chunk walk
+    smem_i = _ssd.smem_bytes_intra(L, N, dh)
+    smem_s = _ssd.smem_bytes_state(L, N, dh)
+    threads = _ssd.THREADS
+    launches = [
+        # cumsum: one thread per (batch, chunk, head), 256 a block
+        dict(smem=0, threads=256, n_blocks=max(math.ceil(b * nc * nh / 256), 1),
+             flops=2 * b * s * nh, nbytes=b * s * nh * (itemsize + 4)),
+        # state walk + inter-chunk term: x, B, C, dt, cs read, y_inter
+        # written in f32, the final state written
+        dict(smem=smem_s, threads=threads, n_blocks=b * nh * (dh // ps),
+             flops=4 * b * s * nh * dh * N + 2 * b * nc * nh * dh * N,
+             nbytes=(b * s * nh * dh * (itemsize + 4)
+                     + b * s * (2 * N * itemsize + nh * (itemsize + 4))
+                     + b * nh * dh * N * 4)),
+        # intra-chunk term: C.B^T once per row tile, then per head the
+        # masked decay tile and its product with dt*x, over the s tiles at
+        # or below the diagonal; y_inter read, y written
+        dict(smem=smem_i, threads=threads, n_blocks=b * nc * n_rt,
+             flops=b * nc * walked * tl * tl * (2 * N + nh * (2 * dh + 4)),
+             nbytes=b * nc * (walked * tl * (nh * dh * itemsize
+                                             + nh * (itemsize + 4) + N * itemsize)
+                              + L * N * itemsize + L * nh * dh * (4 + itemsize))),
+    ]
+    times = [_launch_time(dev=dev, **k) for k in launches]
+    smem = max(smem_i, smem_s)
+    return KernelResources(
+        name="ssd_scan",
+        vmem_bytes=smem,
+        vmem_util=smem / dev.smem_per_block,
+        mxu_aligned=(L % 64 == 0 and dh % 16 == 0),
+        vpu_aligned=(dh * itemsize) % 16 == 0,
+        est_cycles_per_block=sum(t for t, _ in times) * dev.clock_hz,
+        est_latency_us=sum(total for _, total in times) * 1e6,
+        feasible=(_ssd.supported(L, N, dh) and _fits(smem_i, threads, dev)
+                  and _fits(smem_s, threads, dev)),
+        notes=f"chunk={L} nh={nh} dh={dh} N={N}",
+        threads=threads,
+        blocks_per_sm=blocks_per_sm(smem_i, threads, dev),
+    )
+
+
 RESOURCE_FNS = {
     "vecmul": vecmul_resources,
     "rmsnorm": rmsnorm_resources,
     "flash_attention": flash_attention_resources,
+    "ssd_scan": ssd_scan_resources,
 }

@@ -2,16 +2,18 @@
 
 Counterpart of the ``--space kernels`` path of ``repro/launch/dse.py``.
 One cell runs end to end: seed the shipped-default tile, the strategy
-proposes neighbours, each candidate launches the Hopper kernel with its
-tile sizes and is held against the oracle on the card (the correctness
-gate) and ranked on the Hopper resource model's bound, rows go to the
-``CostDB``, the surrogate is fitted, and the measured tier times the best
-heads on the card.
+(by default the ensemble of greedy, anneal and evolve) proposes
+candidates, the surrogate gate (``--gate-factor``) prunes those it
+predicts too slow, each survivor launches the Hopper kernel with its tile
+sizes and is held against the oracle on the card (the correctness gate)
+and ranked on the Hopper resource model's bound, rows go to the
+``CostDB``, the surrogate is fitted, and the promotion ladder's measured
+tier times the best heads on the card.
 
 Example:
     PYTHONPATH=src python -m repro_torch.launch.dse --space kernels \\
-        --arch rmsnorm --shape rms_llama3_8b_8kx4096_bf16 --strategy greedy \\
-        --iterations 2 --budget 3 --measure-top-k 2
+        --arch ssd_scan --shape ssd_mamba2_780m_b8_s4096_bf16 \\
+        --strategy ensemble --gate-factor 3.0 --measure-top-k 2
 
 ``--device cpu`` runs the kernels' plain versions on the CPU instead; the
 default is ``cuda``, and without a card that is an error.
@@ -22,8 +24,7 @@ import argparse
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
-from repro_torch.core.kernel_space import (KERNEL_NAMES, KERNEL_SHAPES,
-                                           PORTED_KERNELS, not_yet_ported)
+from repro_torch.core.kernel_space import KERNEL_NAMES, KERNEL_SHAPES
 from repro_torch.launch.kernel_cell import KERNEL_STRATEGY_CHOICES
 
 
@@ -43,9 +44,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--db", default="artifacts/dse/cost_db.jsonl")
     ap.add_argument("--no-cache", action="store_true",
                     help="disable the content-addressed evaluation cache")
-    ap.add_argument("--strategy", default="greedy",
+    ap.add_argument("--strategy", default="ensemble",
                     choices=list(KERNEL_STRATEGY_CHOICES),
                     help="search strategy (see repro_torch.search)")
+    ap.add_argument("--gate-factor", type=float, default=None,
+                    help="enable the surrogate gate: prune candidates whose "
+                         "predicted bound is > FACTOR x the incumbent "
+                         "(must be > 1)")
+    ap.add_argument("--gate-min-factor", type=float, default=None,
+                    help="anneal the gate's prune threshold from "
+                         "--gate-factor down toward this as the surrogate's "
+                         "validation RMSE improves (must be in "
+                         "(1, gate-factor]; requires --gate-factor)")
     ap.add_argument("--measure-top-k", type=int, default=0, metavar="K",
                     help="after the loop, launch and time the cell's K best "
                          "designs on the card (0 = off); measured rows land "
@@ -59,18 +69,39 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def validate_gate_args(gate_factor: Optional[float],
+                       gate_min_factor: Optional[float]) -> Optional[str]:
+    """The surrogate-gate CLI constraints (an error string, or ``None``
+    when valid), as the reference's ``launch/campaign.py`` states them and
+    ``SurrogateGate.__post_init__`` checks them."""
+    if gate_factor is not None and gate_factor <= 1.0:
+        return (f"gate-factor must be > 1 (got {gate_factor}): the gate "
+                "prunes candidates predicted SLOWER than factor x the "
+                "incumbent")
+    if gate_min_factor is not None:
+        if gate_factor is None:
+            return ("gate-min-factor requires gate-factor (annealing "
+                    "tightens the gate's threshold; there is no gate "
+                    "without a factor)")
+        if not (1.0 < gate_min_factor <= gate_factor):
+            return (f"gate-min-factor must be in (1, {gate_factor}], "
+                    f"got {gate_min_factor}")
+    return None
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
-    """CLI entry: run one kernel cell end to end and return its report.
-    Exits 2 on bad arguments; raises when ``cuda`` is asked for and there
-    is no card."""
+    """CLI entry: run one kernel cell end to end and return its report
+    (with the gate's final state under ``"gate"`` when one ran). Exits 2 on
+    bad arguments; raises when ``cuda`` is asked for and there is no card."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.measure_top_k < 0:
         ap.error(f"measure-top-k must be >= 0, got {args.measure_top_k}")
     if args.measure_runs < 1:
         ap.error(f"measure-runs must be >= 1, got {args.measure_runs}")
-    if args.arch not in PORTED_KERNELS:
-        ap.error(not_yet_ported(args.arch))
+    gate_err = validate_gate_args(args.gate_factor, args.gate_min_factor)
+    if gate_err:
+        ap.error(gate_err)
     from repro_torch.core.kernel_space import KERNEL_SHAPE_BY_NAME, kernel_arch
 
     kshape = KERNEL_SHAPE_BY_NAME[args.shape]
@@ -88,7 +119,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.core.promotion import plan_promotions
     from repro_torch.launch.kernel_cell import (KERNEL_MESH_NAME,
                                                 _explore_kernel_cell)
-    from repro_torch.search import make_strategy
+    from repro_torch.search import (PromotionLadder, SurrogateGate,
+                                    make_strategy)
 
     device = resolve_device(args.device)
     arch = kernel_arch(args.arch)
@@ -101,12 +133,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                                 measured_cache=measured_cache,
                                 measure_runs=args.measure_runs)
     cost_model = CostModel.create(in_dim=featurize({}, {}).shape[0])
+    gate_cls = PromotionLadder if args.measure_top_k > 0 else SurrogateGate
+    gate = (gate_cls(cost_model, factor=args.gate_factor,
+                     min_factor=args.gate_min_factor)
+            if args.gate_factor is not None else None)
     report = _explore_kernel_cell(
         arch, args.shape, evaluator=evaluator, db=db, cost_model=cost_model,
-        strategy=make_strategy(args.strategy), iterations=args.iterations,
-        budget=args.budget, seed=0)
+        gate=gate, strategy=make_strategy(args.strategy),
+        iterations=args.iterations, budget=args.budget, seed=0)
     if cache is not None:
         print(f"evaluation cache: {cache.stats()}")
+    if gate is not None:
+        report["gate"] = {"active": gate.active, "pruned": gate.pruned_total,
+                          "val_rmse": gate.last_rmse, "n": gate.last_val_n}
+        print(f"surrogate gate: active={gate.active} "
+              f"pruned={gate.pruned_total} "
+              f"val_rmse={gate.last_rmse:.3f} (n={gate.last_val_n})")
 
     if args.measure_top_k > 0:
         measured_keys = {d.point.get("__key__") for d in

@@ -6,7 +6,9 @@ Counterpart of ``repro/launch/kernel_cell.py::_explore_kernel_cell``. A
 reference's: seed the shipped-default tile config, the strategy proposes,
 dedupe/rank/truncate, evaluate (kernel launch, correctness gate against
 the oracle, Hopper resource-model bound), observe, and fit the surrogate
-every second iteration. The surrogate gate waits for a later slice.
+every second iteration. With a surrogate gate, each iteration calibrates
+it on the DB and its pruned candidates land as ``pruned`` rows, one per
+design.
 """
 from __future__ import annotations
 
@@ -20,12 +22,13 @@ from repro_torch.search import SearchState, select_candidates
 KERNEL_MESH_NAME = "dev1"
 
 #: strategies ported for kernel cells
-KERNEL_STRATEGY_CHOICES = ("greedy",)
+KERNEL_STRATEGY_CHOICES = ("greedy", "anneal", "evolve", "ensemble")
 
 
 def _explore_kernel_cell(arch: str, shape: str, *, evaluator, db, cost_model,
                          strategy, iterations: int, budget: int,
-                         seed: int, heartbeat=None, log=print) -> Dict:
+                         seed: int, gate=None, heartbeat=None,
+                         log=print) -> Dict:
     """The per-cell search loop. Returns the report dict (``baseline`` /
     ``best`` / ``iterations`` / ``improvement``) in the reference's shape."""
     kshape = KERNEL_SHAPE_BY_NAME[shape]
@@ -74,12 +77,23 @@ def _explore_kernel_cell(arch: str, shape: str, *, evaluator, db, cost_model,
               "compiled": 0, "pruned": 0, "cache_hits": 0,
               "best_bound": (incumbent.metrics.get("bound_s")
                              if incumbent else None)})
+        if gate is not None:
+            gate.calibrate(db, arch=arch, shape=shape,
+                           mesh=evaluator.mesh_name)
         hits0 = cache.hits if cache is not None else 0
         compiles_i = evaluator.compile_count
+        pruned_i = evaluator.pruned_count
         new_dps = evaluator.evaluate_batch(
             arch, shape, [c.point for c in ranked],
-            source=[c.source for c in ranked], iteration=it)
-        db.append_many(new_dps)
+            source=[c.source for c in ranked], iteration=it, gate=gate,
+            incumbent_bound=(incumbent.metrics.get("bound_s")
+                             if incumbent is not None else None))
+        # one pruned row per design, however often it is re-predicted
+        prior_pruned = (db.keys(arch, shape)
+                        - db.keys(arch, shape, include_pruned=False))
+        db.append_many([dp for dp in new_dps
+                        if not (dp.status == "pruned"
+                                and dp.point.get("__key__") in prior_pruned)])
         strategy.observe(new_dps)
         ok_dps = [d for d in new_dps
                   if d.status == "ok" and d.metrics.get("bound_s")]
@@ -93,7 +107,7 @@ def _explore_kernel_cell(arch: str, shape: str, *, evaluator, db, cost_model,
             "iteration": it,
             "evaluated": len(new_dps),
             "compiled": evaluator.compile_count - compiles_i,
-            "pruned": 0,  # no surrogate gate in this slice
+            "pruned": evaluator.pruned_count - pruned_i,
             "cache_hits": (cache.hits - hits0) if cache is not None else 0,
             "best_bound": (incumbent.metrics.get("bound_s")
                            if incumbent else None),

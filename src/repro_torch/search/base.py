@@ -1,7 +1,7 @@
 """Pluggable search-strategy protocol (SECDA-DSE's interchangeable engines).
 
-Counterpart of ``repro/search/base.py``, copied with what the greedy
-kernel-cell loop uses. A :class:`SearchStrategy` is anything with
+Counterpart of ``repro/search/base.py``, copied with what the kernel-cell
+strategies use. A :class:`SearchStrategy` is anything with
 
     propose(state)  -> candidates to evaluate this iteration
     observe(dps)    -> ingest the evaluated results (positive AND negative)
@@ -12,13 +12,44 @@ provenance ``source`` tag that lands in the cost DB's ``source`` field.
 """
 from __future__ import annotations
 
+import math
+import random
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
-from repro_torch.core.cost_db import CostDB, DataPoint, featurize
+from repro_torch.core.cost_db import (MAXIMIZE_OBJECTIVES, CostDB, DataPoint,
+                                      featurize, objectives_of)
 from repro_torch.core.design_space import KernelTemplate, PlanPoint
+
+
+def weighted_objective(dp: Optional[DataPoint],
+                       weights: Optional[Dict[str, float]],
+                       ) -> Optional[float]:
+    """One weighted scalar score (lower is better) for a feasible row's
+    objective vector: the weight-normalized sum of ``log10`` objective
+    values, maximize-sense objectives negated. ``None``/empty weights, or
+    a row whose objectives carry none of the weighted keys, fall back to
+    :func:`bound_of`; missing/failed rows return ``None``."""
+    if dp is None or dp.status != "ok":
+        return None
+    if not weights:
+        return bound_of(dp)
+    objs = objectives_of(dp)
+    total = wsum = 0.0
+    for k in sorted(weights):
+        v = objs.get(k)
+        if v is None or not v > 0:
+            continue
+        term = math.log10(v)
+        if k in MAXIMIZE_OBJECTIVES:
+            term = -term
+        total += weights[k] * term
+        wsum += weights[k]
+    if wsum == 0.0:
+        return bound_of(dp)
+    return total / wsum
 
 
 @dataclass(frozen=True)
@@ -73,6 +104,24 @@ def point_of(dp: DataPoint) -> PlanPoint:
     return PlanPoint(dims={k: v for k, v in dp.point.items() if k != "__key__"})
 
 
+def bound_of(dp: Optional[DataPoint]) -> Optional[float]:
+    """The modelled bound in seconds, or ``None`` for a missing, failed or
+    infeasible data point."""
+    if dp is None or dp.status != "ok":
+        return None
+    return dp.metrics.get("bound_s")
+
+
+def best_negative(db: CostDB, arch: str, shape: str,
+                  incumbent: DataPoint) -> Optional[DataPoint]:
+    """Fastest *infeasible* design that beats the incumbent's bound: the
+    paper's negative-datapoint chaining seed."""
+    inc = incumbent.metrics.get("bound_s") or float("inf")
+    neg = [d for d in db.query(arch, shape, "infeasible")
+           if d.metrics.get("bound_s") and d.metrics["bound_s"] < 0.9 * inc]
+    return min(neg, key=lambda d: d.metrics["bound_s"]) if neg else None
+
+
 def rank_candidates(state: SearchState,
                     cands: Sequence[Candidate]) -> List[Candidate]:
     """Surrogate pre-ranking (cheapest-predicted-bound first); insertion
@@ -97,3 +146,23 @@ def select_candidates(state: SearchState, cands: Sequence[Candidate],
         if k not in seen and k not in uniq:
             uniq[k] = c
     return rank_candidates(state, list(uniq.values()))[: state.budget]
+
+
+def repair(template: KernelTemplate, point: PlanPoint) -> PlanPoint:
+    """Template-delegated candidate repair (``KernelTemplate.repair`` snaps
+    to the pools and shrinks tiles until the block fits the card), so the
+    strategies stay design-space-agnostic."""
+    return template.repair(point)
+
+
+def mutate(template: KernelTemplate, point: PlanPoint, rng: random.Random,
+           n_dims: int = 1) -> PlanPoint:
+    """Mutate ``n_dims`` randomly-chosen dimensions to random legal values
+    (the reference's draws, in the reference's order)."""
+    legal = template.dims()
+    keys = sorted(legal)
+    dims = dict(point.dims)
+    for k in rng.sample(keys, min(n_dims, len(keys))):
+        pool = [v for v in legal[k] if v != dims.get(k)] or list(legal[k])
+        dims[k] = pool[rng.randrange(len(pool))]
+    return repair(template, PlanPoint(dims=dims))

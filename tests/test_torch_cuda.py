@@ -1,6 +1,7 @@
 """repro_torch kernels on the card: each CUDA kernel against its plain
-version over the full legal grid of the CI shapes (row by row, within
-``conformance.PLAIN_REL``), the oracle gate, launch counting, refused
+version over the full legal grid of the CI shapes and a few odd shapes
+(row by row, within ``conformance.PLAIN_REL``), the SSD scan also with an
+initial state at every chunk, the oracle gate, launch counting, refused
 launches, and one DSE cell with measured rows on cuda. The kernels have no
 CPU mode, so these tests skip where torch sees no card; on a machine with
 an H100 and nvcc run them from the repo root with
@@ -14,11 +15,14 @@ from repro_torch.core.cost_db import CostDB
 from repro_torch.core.kernel_space import (CI_KERNEL_SHAPES, KernelShape,
                                            kernel_resources, tile_grid)
 from repro_torch.kernels import conformance, ops
+from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.launch import dse
 
-SHAPES = [s for s in CI_KERNEL_SHAPES if s.kernel != "ssd_scan"] + [
+SHAPES = list(CI_KERNEL_SHAPES) + [
     KernelShape("rms_odd_173x96_f32", "rmsnorm", {"rows": 173, "d": 96}, "float32"),
-    KernelShape("vec_odd_5000_bf16", "vecmul", {"L": 5000}, "bfloat16")]
+    KernelShape("vec_odd_5000_bf16", "vecmul", {"L": 5000}, "bfloat16"),
+    KernelShape("ssd_odd_b2_s96_f32", "ssd_scan",
+                {"b": 2, "s": 96, "nh": 3, "dh": 24, "N": 40}, "float32")]
 
 
 def _grid():
@@ -48,7 +52,8 @@ def test_kernel_matches_plain_on_the_card(shape, dims, card):
     got = conformance.run_candidate(shape, dims, inputs)
     torch.cuda.synchronize()
     assert ops.launch_counts()[shape.kernel] == before + 1
-    assert got.is_cuda and got.dtype == inputs[0].dtype
+    out = got[0] if isinstance(got, tuple) else got
+    assert out.is_cuda and out.dtype == inputs[0].dtype
     agree = conformance.agree_with_plain(
         got, conformance.run_plain(shape, dims, inputs))
     assert agree["passed"], agree
@@ -67,3 +72,20 @@ def test_dse_cell_measures_on_cuda(card, tmp_path):
     measured = [d for d in CostDB(db).all() if d.fidelity == "measured"]
     assert measured and all(d.status == "ok" and d.metrics["backend"] == "cuda"
                             for d in measured)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_threads_an_initial_state(chunk, dtype, card):
+    shape = KernelShape("ssd_s512", "ssd_scan",
+                        {"b": 2, "s": 512, "nh": 4, "dh": 32, "N": 48}, dtype)
+    x, dt, A, B, C = conformance.make_inputs(shape, device=card)
+    gen = torch.Generator(device=card).manual_seed(0)
+    s0 = 0.3 * torch.randn(2, 4, 32, 48, generator=gen, device=card)
+    for init in (None, s0):
+        got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=init)
+        torch.cuda.synchronize()
+        want = ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init)
+        agree = conformance.agree_with_plain(got, want)
+        assert agree["passed"], (init is None, agree)

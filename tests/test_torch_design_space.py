@@ -17,8 +17,6 @@ from repro_torch.core.design_space import (KernelPoint, KernelTemplate,
 from repro_torch.core.device import H100_SXM
 from repro_torch.kernels import flash_attention, rmsnorm
 
-PORTED_CI = [s for s in ks.CI_KERNEL_SHAPES if s.kernel != "ssd_scan"]
-
 
 def test_registry_copies_the_reference():
     assert [dataclasses.astuple(s) for s in ks.CI_KERNEL_SHAPES] == \
@@ -71,7 +69,7 @@ def _whole_pool_feasible(shape) -> bool:
     return True
 
 
-@pytest.mark.parametrize("shape", PORTED_CI, ids=lambda s: s.name)
+@pytest.mark.parametrize("shape", ks.CI_KERNEL_SHAPES, ids=lambda s: s.name)
 def test_neighbors_and_random_points_match_the_reference(shape):
     ours = KernelTemplate(shape)
     theirs = jds.KernelTemplate(jks.KERNEL_SHAPE_BY_NAME[shape.name])
@@ -93,7 +91,7 @@ def test_neighbors_and_random_points_match_the_reference(shape):
 
 
 def test_some_ci_shapes_share_the_whole_pool():
-    assert sum(_whole_pool_feasible(s) for s in PORTED_CI) >= 4
+    assert sum(_whole_pool_feasible(s) for s in ks.CI_KERNEL_SHAPES) >= 4
 
 
 def test_default_attention_tile_is_repaired_to_fit_shared_memory():

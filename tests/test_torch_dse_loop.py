@@ -120,9 +120,6 @@ def test_injected_bad_default_becomes_an_infeasible_row(tmp_path, monkeypatch):
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(SystemExit):
-        dse.main(["--arch", "ssd_scan", "--shape", "ssd_s256_f32", "--device", "cpu",
-                  "--db", str(tmp_path / "db.jsonl")])
-    with pytest.raises(SystemExit):
         dse.main(["--arch", "vecmul", "--shape", "rms_1kx256_bf16", "--device", "cpu",
                   "--db", str(tmp_path / "db.jsonl")])
 

@@ -49,15 +49,16 @@ def test_attention_ref_matches(dtype, sq, sk, causal):
     assert max_err(got, want) <= conformance.tolerance("flash_attention", dtype)
 
 
-@pytest.mark.parametrize("name", [s.name for s in CI_KERNEL_SHAPES
-                                  if s.kernel != "ssd_scan"])
+@pytest.mark.parametrize("name", [s.name for s in CI_KERNEL_SHAPES])
 def test_make_inputs_draws_the_reference_numbers(name):
     from repro.core.kernel_space import KERNEL_SHAPE_BY_NAME as JSHAPES
 
     ours = conformance.make_inputs(KERNEL_SHAPE_BY_NAME[name])
     theirs = jconf.make_inputs(JSHAPES[name])
+    assert len(ours) == len(theirs)
     for a, b in zip(ours, theirs):
-        assert a.dtype == conformance._DTYPES[JSHAPES[name].dtype]
+        # ssd_scan's A is f32 whatever the shape's dtype, as in the reference
+        assert a.dtype == conformance._DTYPES[str(b.dtype)]
         # f32 draws are identical; bf16 may round a rare halfway value the
         # other way (torch converts f64 -> f32 -> bf16): one bf16 ulp
         ulp = 0.0 if a.dtype == torch.float32 else 2.0 ** -8 * np.abs(as_np(b)).max()
@@ -74,16 +75,6 @@ def test_gate_passes_default_and_rejects_injected_bad(monkeypatch):
     assert not bad["passed"] and bad["max_abs_err"] > 0.09
 
 
-def test_ssd_scan_is_not_yet_ported():
-    from repro_torch.core.kernel_space import kernel_resources
-
-    shape = KERNEL_SHAPE_BY_NAME["ssd_s256_f32"]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        kernel_resources(shape, {"chunk": 64})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        conformance.make_inputs(shape)
-
-
 @pytest.mark.parametrize("shape", CI_KERNEL_SHAPES, ids=lambda s: s.name)
 def test_tile_grid_is_the_product_of_the_reference_pools(shape):
     pools = jks.legal_kernel_dims(jks.KERNEL_SHAPE_BY_NAME[shape.name])
@@ -92,14 +83,18 @@ def test_tile_grid_is_the_product_of_the_reference_pools(shape):
     assert tile_grid(shape) == want
 
 
-@pytest.mark.parametrize("name", [s.name for s in CI_KERNEL_SHAPES
-                                  if s.kernel != "ssd_scan"])
+@pytest.mark.parametrize("name", [s.name for s in CI_KERNEL_SHAPES])
 def test_run_plain_is_what_a_cpu_candidate_runs(name):
     shape = KERNEL_SHAPE_BY_NAME[name]
     inputs = conformance.make_inputs(shape)
     for dims in tile_grid(shape)[:3]:
         got = conformance.run_candidate(shape, dims, inputs)
-        assert torch.equal(got, conformance.run_plain(shape, dims, inputs))
+        want = conformance.run_plain(shape, dims, inputs)
+        if isinstance(want, tuple):  # ssd_scan: (y, final_state)
+            assert len(got) == len(want)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        else:
+            assert torch.equal(got, want)
 
 
 def test_plain_agreement_allows_rounding_but_not_a_wrong_late_row():

@@ -34,7 +34,8 @@ def test_ops_vecmul_on_cpu_runs_the_plain_version_and_counts_nothing():
     x = torch.arange(10, dtype=torch.float32)
     out = ops.vecmul(x, x, block=256)
     assert torch.equal(out, x * x)
-    assert ops.launch_counts() == {"vecmul": 0, "rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"vecmul": 0, "rmsnorm": 0, "flash_attention": 0,
+                                   "ssd_scan": 0}
 
 
 def test_vecmul_cuda_refuses_cpu_tensors():
