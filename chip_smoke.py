@@ -12,25 +12,37 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    torch version on the card: the points the Hopper resource model calls
    feasible must launch and agree row by row within
    ``conformance.PLAIN_REL`` of each row's largest value (for the SSD scan
-   y and the final state, with and without an ``initial_state``), the
-   others must be refused;
+   y and the final state, with and without an ``initial_state``), each
+   through the route the resource model names (flash attention: ``wgmma``
+   or ``fma``; rmsnorm: ``registers``, ``two-pass`` or ``scalar``), the
+   others must be refused; then bf16 flash attention's card cases on both
+   routes (``sq != sk``, ``q_offset`` of 64, 0 and -32, non-causal, odd
+   K-tile walks, d = 64, 96 and 128, 256-row, 32-row and one-row query
+   blocks) and rmsnorm at 8193 x 4096 on every path and ``block_rows``;
 3. the main path, ``repro_torch.launch.dse`` once per kernel on its
    full-width shape (vecmul and rmsnorm: greedy, 2 iterations; flash
    attention and the SSD scan: the default ensemble with the surrogate
-   gate at 3.0, 3 iterations; budget 3 and the 2 best measured by the
+   gate, 3 iterations, the gate's factor 1.5 for flash attention, whose
+   feasible tiles are modelled within 1.7x of each other, and 3.0 for the
+   SSD scan; budget 3 and the 2 best measured by the
    promotion ladder for all): launch counts are set to 0 just before each
-   run and read just after, rows must be gate-checked on the card and
+   run and read just after (flash attention must have run on ``wgmma``,
+   rmsnorm on ``registers``), rows must be gate-checked on the card and
    measured rows must say ``backend: cuda``, and the gate's state is
    printed (with 4-6 feasible points the gate's calibration guard never
    arms it here, so these cells do not show what it prunes); then with ``REPRO_KERNEL_INJECT_BAD`` naming the default point,
    that point must become an ``infeasible`` row;
 4. at each full-width default point, the kernel's, the plain version's and
    (where one exists) one PyTorch library call's times from CUDA events,
-   beside the roofline bound; then the flash kernel's time at every
-   feasible full-width tile and the SSD scan's at every chunk, beside the
-   resource model's estimate.
+   beside the roofline bound; then the flash kernel's time, TFLOP/s,
+   shared memory, registers (model and compiler), CTAs per SM and route at
+   every feasible full-width tile, rmsnorm's time, share of bound,
+   ``F.rms_norm`` and the two-pass path's time on the same rows at every
+   ``block_rows``, and the SSD scan's at every
+   chunk, beside the resource model's estimate.
 
-It prints a JSON line of per-kernel results, the card's name and power
+It prints a JSON line of per-kernel results (``route`` is ``cuda``;
+``kernel_route`` names the kernel's own route or path), the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
 jax or of the JAX package.
 """
@@ -84,6 +96,15 @@ def time_ms(fn, *, budget_s: float = 0.2, max_reps: int = 100) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_space_route(shape, dims) -> str:
+    """The kernel's own route at a tile: the resource model's for flash
+    attention and rmsnorm, the single kernel's design for the others."""
+    from repro_torch.core.kernel_space import kernel_resources
+
+    return kernel_resources(shape, dims).route or {
+        "vecmul": "elementwise", "ssd_scan": "fma"}[shape.kernel]
+
+
 def main() -> None:
     import torch
 
@@ -102,6 +123,7 @@ def main() -> None:
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import vecmul as vm
+    from repro_torch.kernels.resource_model import flash_attention_resources
     from repro_torch.launch import dse
 
     dev = torch.device("cuda")
@@ -140,6 +162,7 @@ def main() -> None:
                                               generator=gen, device=dev))
         n_ok = n_refused = 0
         worst = None
+        routes = {}
         for dims in tile_grid(shape):
             if not kernel_resources(shape, dims).feasible:
                 try:
@@ -150,7 +173,10 @@ def main() -> None:
                     continue
                 fail(f"{shape.name} {dims}: the model calls it infeasible, "
                      f"but the card launched it")
+            res = kernel_resources(shape, dims)
+            route_key = f"{shape.kernel}/{res.route}"
             for s0 in variants:
+                before = _build.LAUNCHES[route_key]
                 if s0 is None:
                     got = conformance.run_candidate(shape, dims, inputs)
                     want = conformance.run_plain(shape, dims, inputs)
@@ -161,6 +187,10 @@ def main() -> None:
                 if not agree["passed"]:
                     fail(f"{shape.name} {dims} initial_state={s0 is not None}: "
                          f"kernel vs plain {agree}")
+                if res.route and _build.LAUNCHES[route_key] != before + 1:
+                    fail(f"{shape.name} {dims}: did not launch on route {res.route}")
+                if res.route:
+                    routes[res.route] = routes.get(res.route, 0) + 1
                 if worst is None or agree["ratio"] > worst["ratio"]:
                     worst = agree
                 n_ok += 1
@@ -169,19 +199,79 @@ def main() -> None:
               f"version row by row within {rel:.3g} of each row's max |out| "
               f"(worst row: err/limit {worst['ratio']:.3g}, limit {worst['limit']:.3g}; "
               f"max|err| {worst['max_abs_err']:.3g}; mean |out| {worst['mean_abs']:.3g}); "
-              f"{n_refused} infeasible points refused", flush=True)
+              f"{n_refused} infeasible points refused; runs per route {routes}", flush=True)
         del inputs, variants
+
+    # the bf16 flash cases on both routes: sq != sk, q_offset, non-causal,
+    # odd K-tile walks (5 tiles of 64 against 2 stages) at d = 64 and 128 on
+    # wgmma; d = 96, a 256-row tile and short query blocks (32 rows, one
+    # row) on the FMA kernel
+    n_ok = 0
+    worst = 0.0
+    routes = {}
+    for d in (64, 96, 128):
+        for sq, sk, q_offset, causal in [(128, 256, 0, True), (128, 320, 64, True),
+                                         (128, 256, -32, True), (192, 320, 0, False),
+                                         (256, 128, 0, True), (32, 256, 224, True),
+                                         (1, 256, 255, True)]:
+            gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
+            q, k, v = ((0.3 * torch.randn(2, s_, hh, d, generator=gen, device=dev)
+                        ).to(torch.bfloat16) for s_, hh in ((sq, 4), (sk, 2), (sk, 2)))
+            for bq in (64, 128, 256):
+                for bk in fa.WGMMA_BLOCKS:
+                    bq_, bk_ = min(bq, sq), min(bk, sk)
+                    if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or not \
+                            flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_).feasible:
+                        continue
+                    kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
+                    key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
+                    before = _build.LAUNCHES[key]
+                    agree = conformance.agree_with_plain(
+                        fa.flash_attention_cuda(q, k, v, **kw),
+                        fa.flash_attention_plain(q, k, v, **kw))
+                    if not agree["passed"] or _build.LAUNCHES[key] != before + 1:
+                        fail(f"flash bf16 d={d} sq={sq} sk={sk} {kw} on {key}: {agree}")
+                    worst = max(worst, agree["ratio"])
+                    routes[key] = routes.get(key, 0) + 1
+                    n_ok += 1
+    print(f"cases flash_attention bf16: {n_ok} runs (sq != sk, q_offset 64/0/-32, "
+          f"non-causal, odd walks, d 64/96/128, block_q 256, 32 and 1 query rows) "
+          f"agree with the plain version row by row (worst row err/limit {worst:.3g}); "
+          f"runs per route {routes}", flush=True)
+    # rmsnorm at an odd row count on every path and block_rows
+    n_ok = 0
+    worst = 0.0
+    for rows, d, dtype in [(8193, 4096, torch.bfloat16), (8193, 6144, torch.bfloat16),
+                           (301, 100, torch.bfloat16)]:
+        gen = torch.Generator(device=dev).manual_seed(rows + d)
+        x = (0.3 * torch.randn(rows, d, generator=gen, device=dev)).to(dtype)
+        w = (0.3 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+        key = f"rmsnorm/{rn.path(d, x.element_size())}"
+        for br in (32, 64, 128, 256):
+            before = _build.LAUNCHES[key]
+            agree = conformance.agree_with_plain(rn.rmsnorm_cuda(x, w, block_rows=br),
+                                                 rn.rmsnorm_plain(x, w, block_rows=br))
+            if not agree["passed"] or _build.LAUNCHES[key] != before + 1:
+                fail(f"rmsnorm {rows}x{d} block_rows={br} on {key}: {agree}")
+            worst = max(worst, agree["ratio"])
+            n_ok += 1
+    print(f"cases rmsnorm: {n_ok} runs (8193x4096 registers, 8193x6144 two-pass, "
+          f"301x100 scalar; every block_rows) agree with the plain version row by row "
+          f"(worst row err/limit {worst:.3g})", flush=True)
 
     # ---- phase 3: the main path, one DSE cell per kernel at full width ----
     search = {
         "vecmul": ["--strategy", "greedy", "--iterations", "2"],
         "rmsnorm": ["--strategy", "greedy", "--iterations", "2"],
-        "flash_attention": ["--strategy", "ensemble", "--gate-factor", "3.0",
+        # the cell's eight feasible (wgmma) tiles are modelled within 1.7x
+        # of each other: a factor of 3.0 could never prune there
+        "flash_attention": ["--strategy", "ensemble", "--gate-factor", "1.5",
                             "--iterations", "3"],
         "ssd_scan": ["--strategy", "ensemble", "--gate-factor", "3.0",
                      "--iterations", "3"],
     }
     launches = {}
+    picks = {}
     for kernel, shape_name in full.items():
         db_dir = OUT / kernel
         shutil.rmtree(db_dir, ignore_errors=True)
@@ -192,19 +282,23 @@ def main() -> None:
         t = time.perf_counter()
         report = dse.main(argv)
         counts = ops.launch_counts()
+        route_counts = ops.route_launch_counts()
         launches[kernel] = counts[kernel]
         rows = CostDB(db_dir / "cost_db.jsonl").all()
         statuses = {st: sum(d.status == st for d in rows)
                     for st in sorted({d.status for d in rows})}
         print(f"main path {kernel}/{shape_name} ({' '.join(search[kernel])}): "
               f"{time.perf_counter() - t:.1f} s, {len(rows)} rows {statuses}, "
-              f"launches {counts}", flush=True)
+              f"launches {counts} by route {route_counts}", flush=True)
         if "gate" in report:
             g = report["gate"]
             print(f"gate {kernel}: active={g['active']} pruned={g['pruned']} "
                   f"val_rmse={g['val_rmse']:.3f} n={g['n']}", flush=True)
         if counts[kernel] == 0:
             fail(f"{kernel}: the main path launched its kernel no time")
+        new_route = {"flash_attention": "wgmma", "rmsnorm": "registers"}.get(kernel)
+        if new_route and route_counts.get(f"{kernel}/{new_route}", 0) == 0:
+            fail(f"{kernel}: the main path never launched the {new_route} kernel")
         if any(d.status == "error" for d in rows):
             fail(f"{kernel}: error rows: {[d.reason for d in rows if d.status == 'error']}")
         checked = [d for d in rows if d.fidelity == "dryrun" and d.status == "ok"]
@@ -215,6 +309,10 @@ def main() -> None:
                                for d in measured):
             fail(f"{kernel}: measured rows must be ok on cuda: "
                  f"{[(d.status, d.metrics.get('backend')) for d in measured]}")
+        picks[kernel] = report["best"]["point"]
+        print(f"pick {kernel}: {report['best']['point']} (model); measured "
+              + ", ".join(f"{ {k: v for k, v in d.point.items() if k != '__key__'} } "
+                          f"{d.metrics['measured_us']:.2f} us" for d in measured), flush=True)
         for d in checked + measured:
             err = d.metrics["max_abs_err"]
             if not (math.isfinite(err) and err <= d.metrics["tol"]):
@@ -293,8 +391,10 @@ def main() -> None:
                            budget_s=0.5, max_reps=10)
         library_ms = time_ms(lib) if lib is not None else None
         mod = modules[kernel]
+        kernel_route = kernel_space_route(shape, dims)
+        source = fa.SOURCES[kernel_route] if kernel == "flash_attention" else mod.SOURCE
         results.append({
-            "name": kernel, "route": "cuda", "source": mod.SOURCE,
+            "name": kernel, "route": "cuda", "kernel_route": kernel_route, "source": source,
             "replaces": mod.REPLACES, "launches": launches[kernel],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -307,21 +407,66 @@ def main() -> None:
               f"[{card}]", flush=True)
         del inputs
 
-    # where the flash kernel's time goes: every feasible full-width tile,
-    # beside the resource model's estimate for it
+    # the flash kernel at every feasible full-width tile, beside the
+    # resource model's estimate, SDPA and the bound for the same mask
     shape = KERNEL_SHAPE_BY_NAME[full["flash_attention"]]
+    p = shape.params
     q, k, v = conformance.make_inputs(shape, device=dev)
+    qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    for causal in (True, False):
+        pairs = (sum(min(p["sk"], i + 1) for i in range(p["sq"])) if causal
+                 else p["sq"] * p["sk"])
+        flops = 4 * p["d"] * p["b"] * p["h"] * pairs
+        bound_ms = max(flops / peak_flops(H100_SXM, shape.dtype),
+                       (2 * q.numel() + k.numel() + v.numel()) * 2 / H100_SXM.hbm_bw) * 1e3
+        sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh_, vh, is_causal=causal, enable_gqa=True))
+        for dims in tile_grid(shape):
+            res = kernel_resources(shape, dims)
+            if not res.feasible or dims["causal"] != causal:
+                continue
+            ms = time_ms(lambda: fa.flash_attention_cuda(
+                q, k, v, causal=causal, block_q=dims["block_q"],
+                block_k=dims["block_k"]), max_reps=50)
+            regs, local = (fa.wgmma_attributes(p["d"], dims["block_q"], dims["block_k"])
+                           if res.route == "wgmma" else (0, 0))
+            print(f"sweep flash_attention {dims}: kernel {ms:.4f} ms, "
+                  f"{flops / ms / 1e9:.1f} TFLOP/s, modelled {res.est_latency_us / 1e3:.4f} ms, "
+                  f"SDPA {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms, route {res.route}, "
+                  f"smem {res.vmem_bytes} B, registers {res.regs_per_thread} modelled / "
+                  f"{regs} compiled ({local} B local), {res.threads} threads, "
+                  f"{res.blocks_per_sm} CTAs/SM [{card}]", flush=True)
+    del q, k, v, qh, kh_, vh
+
+    # rmsnorm at every block_rows, beside F.rms_norm and the bound, and the
+    # same rows on the two-pass path, which the wrapper does not take here
+    shape = KERNEL_SHAPE_BY_NAME[full["rmsnorm"]]
+    x, w = conformance.make_inputs(shape, device=dev)
+    bound_ms = (2 * x.numel() + w.numel()) * x.element_size() / H100_SXM.hbm_bw * 1e3
+    lib_ms = time_ms(lambda: F.rms_norm(x, (x.shape[1],), w, eps=1e-5))
+
+    def two_pass(block_rows):
+        out = torch.empty_like(x)
+        _build.check("rmsnorm_launch", _build.library().rmsnorm_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+            block_rows, 1e-5, _build.dtype_code(x), rn.PATH_CODES["two-pass"], 0,
+            rn.THREADS, rn.smem_bytes(x.shape[1]), _build.stream_ptr(dev)))
+        return out
+
     for dims in tile_grid(shape):
         res = kernel_resources(shape, dims)
-        if not res.feasible:
-            continue
-        ms = time_ms(lambda: fa.flash_attention_cuda(
-            q, k, v, causal=dims["causal"], block_q=dims["block_q"],
-            block_k=dims["block_k"]), max_reps=10)
-        print(f"sweep flash_attention {dims}: kernel {ms:.4f} ms, modelled "
-              f"{res.est_latency_us / 1e3:.4f} ms, smem {res.vmem_bytes} B, "
-              f"{res.blocks_per_sm} blocks/SM [{card}]", flush=True)
-    del q, k, v
+        br = dims["block_rows"]
+        agree = conformance.agree_with_plain(two_pass(br), rn.rmsnorm_plain(x, w, block_rows=br))
+        if not agree["passed"]:
+            fail(f"rmsnorm two-pass at block_rows={br}: {agree}")
+        ms = time_ms(lambda: rn.rmsnorm_cuda(x, w, block_rows=br))
+        tp_ms = time_ms(lambda: two_pass(br))
+        tag = " (the DSE's pick)" if dims == picks["rmsnorm"] else ""
+        print(f"sweep rmsnorm {dims}{tag}: kernel {ms:.4f} ms, {100 * bound_ms / ms:.1f}% of "
+              f"bound {bound_ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms, modelled "
+              f"{res.est_latency_us / 1e3:.4f} ms, route {res.route}, "
+              f"{res.blocks_per_sm} CTAs/SM; two-pass {tp_ms:.4f} ms [{card}]", flush=True)
+    del x, w
 
     # and the SSD scan's at every chunk, with each of its three launches'
     # share from the profiler (the mean over 3 calls)

@@ -31,6 +31,7 @@ class DeviceModel:
     max_threads_per_block: int = 1024
     max_threads_per_sm: int = 2048
     max_blocks_per_sm: int = 32
+    regs_per_sm: int = 65_536  # 32-bit registers an SM divides among its blocks
 
 
 H100_SXM = DeviceModel(

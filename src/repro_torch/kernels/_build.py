@@ -44,13 +44,17 @@ _F = ctypes.c_float
 #: without them
 SIGNATURES = {
     "vecmul_launch": [_P, _P, _P, _LL, _I, _I, _I, _P],
-    "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _I, _I, _P],
+    "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, _I, _F, _I, _I, _P],
+    "flash_attention_wgmma_attributes": [_I, _I, _I, _P, _P],
     "ssd_scan_launch": [_P] * 10 + [_I] * 13 + [_P],
 }
 
-#: launches per kernel: each CUDA wrapper adds one where it launches its
+#: launches per kernel, and per kernel and route under "<kernel>/<route>":
+#: each CUDA wrapper adds one where it launches its
 #: kernel, and nowhere else (``ops.launch_counts`` reads it)
 LAUNCHES: collections.Counter = collections.Counter()
 

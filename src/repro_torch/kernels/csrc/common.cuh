@@ -26,23 +26,3 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
 
 // elements of T in one 16-byte vector access
 template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
-
-// Sum of `v` over all threads of the block, in f32. `red` is shared memory
-// of at least 33 floats. Every thread gets the total. Safe to call again
-// right after it returns: slot 32 is written only after the first barrier.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < nwarps ? red[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_xor_sync(0xffffffffu, t, off);
-    if (lane == 0) red[32] = t;
-  }
-  __syncthreads();
-  return red[32];
-}

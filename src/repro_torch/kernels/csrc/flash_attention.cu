@@ -13,7 +13,11 @@
 // ~1,000 FLOP per byte at llama3-8b widths, far above the bf16 ridge of ~295.
 // Its least time is FLOP / 989e12 s (bf16 tensor cores). This kernel does
 // its two products as plain f32 FMAs on the CUDA cores, so it cannot go
-// below FLOP / 67e12 s; wgmma is later work.
+// below FLOP / 67e12 s. It runs f32 inputs (TF32 would not hold them to
+// their plain version) and bf16 at every head dim and tile that
+// csrc/flash_attention_wgmma.cu is not instantiated for (that kernel takes
+// d 64 and 128 at block_q, block_k of 64 or 128; the rule is
+// repro_torch/kernels/flash_attention.py::route).
 //
 // What the design does about it: one block of 256 threads per (b*h, q tile
 // of block_q rows). The Pallas grid walks K/V in block_k slices inside the

@@ -4,7 +4,9 @@ Counterpart of ``repro/kernels/ops.py``. A wrapper given CUDA tensors
 launches the hand-written Hopper kernel, or raises: there is no fallback.
 Given CPU tensors it runs the kernel's plain torch version over the same
 tiles (the role ``interpret=True`` plays for the Pallas kernels). Each
-kernel launch adds one to that kernel's count in :func:`launch_counts`.
+kernel launch adds one to that kernel's count in :func:`launch_counts`
+and, for flash attention and rmsnorm, to its route's count in
+:func:`route_launch_counts`.
 """
 from __future__ import annotations
 
@@ -25,6 +27,12 @@ KERNELS = ("vecmul", "rmsnorm", "flash_attention", "ssd_scan")
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, per kernel."""
     return {k: int(_build.LAUNCHES[k]) for k in KERNELS}
+
+
+def route_launch_counts() -> Dict[str, int]:
+    """Kernel launches so far per kernel and route (``"flash_attention/wgmma"``,
+    ``"rmsnorm/registers"``, ...), for the kernels that have routes."""
+    return {k: int(n) for k, n in sorted(_build.LAUNCHES.items()) if "/" in k}
 
 
 def reset_launch_counts() -> None:

@@ -8,16 +8,23 @@ For each candidate tile of a port kernel it reports:
   launch calls), and ``vmem_util``, its share of the 232,448 B a block may
   have (the BRAM-utilization analog; the names stay because
   ``cost_db.derive_objectives`` reads ``vmem_util``);
-* ``feasible``: that figure fits one block and the thread count is legal,
-  so the DSE never proposes a tile that cannot launch;
+* ``feasible``: that figure fits one block, the thread count is legal and
+  the kernel has the tile (the wgmma route takes only the tiles it is
+  instantiated for), so the DSE never proposes a tile that cannot launch;
+* ``route``: which kernel (or kernel path) runs the tile, by the same rule
+  the wrapper applies before its launch, and ``regs_per_thread``, the
+  modelled registers, which only set the blocks resident per SM (0 where
+  the model does not count them);
 * ``mxu_aligned``: the tile is ``wgmma``-aligned (a multiple of 64 rows,
   d % 16 == 0); kernels with no matrix product report True;
 * ``vpu_aligned``: rows are whole 16-byte vectors;
 * ``est_latency_us``: blocks in waves over the SMs at the occupancy that
   shared memory and threads allow, each wave taking one block's
-  max(compute, bytes) time, with the card's f32 and memory rates split
-  evenly among the resident blocks but never more than one SM's share to
-  a block. Each ``csrc/*.cu`` states its terms.
+  max(compute, bytes) time, with the card's compute rate (f32 on the CUDA
+  cores; bf16 on the tensor cores for the wgmma route) and memory rate
+  split evenly among the resident blocks but never more than one SM's
+  share to a block. Resident blocks per SM are what shared memory,
+  threads and registers allow. Each ``csrc/*.cu`` states its terms.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Tuple
+
+import torch
 
 from repro_torch.core.device import H100_SXM, DeviceModel
 from repro_torch.kernels import flash_attention as _fa
@@ -46,28 +55,33 @@ class KernelResources:
     notes: str = ""
     threads: int = 0  # threads per block
     blocks_per_sm: int = 0  # resident blocks per SM at this tile
+    regs_per_thread: int = 0  # modelled; 0 where not counted
+    route: str = ""  # the kernel or path that runs this tile
 
     def to_dict(self):
         return dataclasses.asdict(self)
 
 
-def blocks_per_sm(smem: int, threads: int, dev: DeviceModel) -> int:
-    """Resident blocks per SM allowed by shared memory and threads."""
+def blocks_per_sm(smem: int, threads: int, dev: DeviceModel, regs: int = 0) -> int:
+    """Resident blocks per SM allowed by shared memory, threads and, when
+    ``regs`` (per thread) is given, the register file."""
     by_smem = dev.smem_per_sm // (smem + dev.smem_reserved_per_block)
     by_threads = dev.max_threads_per_sm // max(threads, 1)
-    return max(0, min(by_smem, by_threads, dev.max_blocks_per_sm))
+    by_regs = dev.regs_per_sm // (regs * threads) if regs else dev.max_blocks_per_sm
+    return max(0, min(by_smem, by_threads, by_regs, dev.max_blocks_per_sm))
 
 
-def _launch_time(*, smem, threads, n_blocks, flops, nbytes,
-                 dev: DeviceModel) -> Tuple[float, float]:
+def _launch_time(*, smem, threads, n_blocks, flops, nbytes, dev: DeviceModel,
+                 regs: int = 0, peak: float = 0.0) -> Tuple[float, float]:
     """(one block's seconds, the launch's seconds): blocks in waves over
     the SMs, the card's rates split evenly among the blocks resident at
-    once, and a block never getting more than one SM's share."""
-    occ = max(blocks_per_sm(smem, threads, dev), 1)
+    once, and a block never getting more than one SM's share. ``peak`` is
+    the compute rate (default: f32 on the CUDA cores)."""
+    occ = max(blocks_per_sm(smem, threads, dev, regs), 1)
     resident = dev.sm_count * occ
     waves = math.ceil(n_blocks / resident)
     share = max(min(n_blocks, resident), dev.sm_count)
-    t_block = max(flops / n_blocks / (dev.peak_flops_fp32 / share),
+    t_block = max(flops / n_blocks / ((peak or dev.peak_flops_fp32) / share),
                   nbytes / n_blocks / (dev.hbm_bw / share))
     return t_block, waves * t_block
 
@@ -77,9 +91,11 @@ def _fits(smem: int, threads: int, dev: DeviceModel) -> bool:
 
 
 def _mk(name, *, smem, threads, n_blocks, flops, nbytes, aligned_mma,
-        aligned_vec, dev: DeviceModel, notes="") -> KernelResources:
+        aligned_vec, dev: DeviceModel, notes="", regs: int = 0, peak: float = 0.0,
+        route: str = "") -> KernelResources:
     t_block, total = _launch_time(smem=smem, threads=threads, n_blocks=n_blocks,
-                                  flops=flops, nbytes=nbytes, dev=dev)
+                                  flops=flops, nbytes=nbytes, dev=dev, regs=regs,
+                                  peak=peak)
     return KernelResources(
         name=name,
         vmem_bytes=smem,
@@ -91,8 +107,30 @@ def _mk(name, *, smem, threads, n_blocks, flops, nbytes, aligned_mma,
         feasible=_fits(smem, threads, dev),
         notes=notes,
         threads=threads,
-        blocks_per_sm=blocks_per_sm(smem, threads, dev),
+        blocks_per_sm=blocks_per_sm(smem, threads, dev, regs),
+        regs_per_thread=regs,
+        route=route,
     )
+
+
+def _round8(n: float) -> int:
+    return int(math.ceil(n / 8)) * 8
+
+
+def flash_wgmma_registers(block_k: int, d: int) -> int:
+    """Registers per thread the model gives the wgmma kernel, for its
+    blocks per SM: S (bk/2 f32), O (d/2 f32), P in bf16 (bk/4) and 48 for
+    addresses, m, l and the loop, rounded up to 8 (block_q sets the thread
+    count, not this)."""
+    return _round8(block_k / 2 + d / 2 + block_k / 4 + 48)
+
+
+def rmsnorm_registers(d: int, itemsize: int) -> int:
+    """Registers per thread the model gives the rmsnorm kernel: 4 per
+    16-byte vector held on the register path, plus 32; 40 on the others."""
+    if _rn.path(d, itemsize) != "registers":
+        return 40
+    return _round8(4 * _rn.vectors_per_lane(d, itemsize) + 32)
 
 
 def vecmul_resources(L: int, block: int, itemsize: int = 4,
@@ -117,7 +155,11 @@ def rmsnorm_resources(rows: int, d: int, block_rows: int, itemsize: int = 2,
         nbytes=(2 * rows * d + n_blocks * d) * itemsize,
         aligned_mma=True,  # no matrix product
         aligned_vec=(d * itemsize) % 16 == 0,
-        dev=dev, notes=f"rows={rows} d={d} block_rows={block_rows}")
+        dev=dev, notes=f"rows={rows} d={d} block_rows={block_rows}",
+        regs=rmsnorm_registers(d, itemsize), route=_rn.path(d, itemsize))
+
+
+_DTYPE_OF_ITEMSIZE = {2: torch.bfloat16, 4: torch.float32}
 
 
 def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
@@ -133,13 +175,23 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
     # masked entries too
     flops = b * h * walked * 4 * block_q * block_k * d
     nbytes = b * h * (2 * sq * d + walked * 2 * block_k * d) * itemsize
+    route = _fa.route(_DTYPE_OF_ITEMSIZE[itemsize], d, min(block_q, sq),
+                      min(block_k, sk))
+    if route == "wgmma":
+        # the route takes only instantiated tiles; registers set occupancy
+        launch = dict(smem=_fa.smem_bytes_wgmma(block_q, block_k, d),
+                      threads=_fa.wgmma_threads(block_q),
+                      regs=flash_wgmma_registers(block_k, d),
+                      peak=dev.peak_flops_bf16)
+    else:
+        launch = dict(smem=_fa.smem_bytes(block_q, block_k, d, itemsize),
+                      threads=_fa.THREADS)
     return _mk(
-        "flash_attention",
-        smem=_fa.smem_bytes(block_q, block_k, d, itemsize), threads=_fa.THREADS,
-        n_blocks=n_blocks, flops=flops, nbytes=nbytes,
+        "flash_attention", n_blocks=n_blocks, flops=flops, nbytes=nbytes,
         aligned_mma=(block_q % 64 == 0 and block_k % 16 == 0 and d % 16 == 0),
-        aligned_vec=(d * itemsize) % 16 == 0,
-        dev=dev, notes=f"bq={block_q} bk={block_k} d={d} sk={sk} causal={causal}")
+        aligned_vec=(d * itemsize) % 16 == 0, dev=dev, route=route,
+        notes=f"bq={block_q} bk={block_k} d={d} sk={sk} causal={causal}",
+        **launch)
 
 
 def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/kernels/rmsnorm.py``. ``rmsnorm_cuda`` launches the
 hand-written Hopper kernel in ``csrc/rmsnorm.cu`` (one CUDA block per
-``block_rows`` rows); ``rmsnorm_plain`` is the same function in plain
-torch over the same row tiles (pad rows to a multiple of ``block_rows``,
-normalise tile by tile, slice back).
+``block_rows`` rows, one warp per row) on the path :func:`path` picks;
+``rmsnorm_plain`` is the same function in plain torch over the same row
+tiles (pad rows to a multiple of ``block_rows``, normalise tile by tile,
+slice back).
 """
 from __future__ import annotations
 
@@ -16,15 +17,41 @@ from repro_torch.kernels import _build
 SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
 REPLACES = "src/repro/kernels/rmsnorm.py:9"
 
-#: threads per CUDA block
-THREADS = 256
+#: threads per CUDA block: 16 warps, each owning whole rows
+THREADS = 512
+
+#: the longest row the register path holds: 16 vectors of 16 bytes a lane
+MAX_REGISTER_ROW_BYTES = 16 * 16 * 32
+
+#: the kernel's paths and their codes in ``csrc/rmsnorm.cu``
+PATH_CODES = {"scalar": 0, "two-pass": 1, "registers": 2}
+
+
+def path(d: int, itemsize: int, aligned: bool = True) -> str:
+    """The kernel's path for rows of ``d`` elements, decided before the
+    launch: ``"registers"`` for rows of whole 16-byte vectors of at most
+    ``MAX_REGISTER_ROW_BYTES`` (the row stays in registers between the sum
+    of squares and the write), ``"two-pass"`` for longer rows of whole
+    vectors (the second read comes from L2), ``"scalar"`` when the rows
+    are not whole vectors or a pointer is not 16-byte aligned."""
+    row = d * itemsize
+    if row % 16 or not aligned:
+        return "scalar"
+    return "registers" if row <= MAX_REGISTER_ROW_BYTES else "two-pass"
+
+
+def vectors_per_lane(d: int, itemsize: int) -> int:
+    """16-byte vectors each lane holds on the register path: the power of
+    two at or above the row's vectors over 32 lanes (the kernel masks the
+    rest)."""
+    need = -(-(d * itemsize // 16) // 32)
+    return 1 << max(need - 1, 0).bit_length()
 
 
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory the kernel asks for: w and one row in f32,
-    plus 33 floats for the block reduction. The launch and the resource
-    model both call this."""
-    return 4 * (2 * d + 33)
+    """Dynamic shared memory the kernel asks for: w in f32. The launch and
+    the resource model both call this."""
+    return 4 * d
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:
@@ -61,12 +88,14 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-5,
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    vector = (d * x.element_size()) % 16 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, out))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, out))
+    kind = path(d, x.element_size(), aligned)
     lib = _build.library()
     err = lib.rmsnorm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
-                             block_rows, eps, code, int(vector), THREADS,
+                             block_rows, eps, code, PATH_CODES[kind],
+                             vectors_per_lane(d, x.element_size()), THREADS,
                              smem_bytes(d), _build.stream_ptr(x.device))
     _build.check("rmsnorm_launch", err)
     _build.LAUNCHES["rmsnorm"] += 1
+    _build.LAUNCHES[f"rmsnorm/{kind}"] += 1
     return out

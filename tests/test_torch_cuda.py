@@ -1,8 +1,12 @@
 """repro_torch kernels on the card: each CUDA kernel against its plain
 version over the full legal grid of the CI shapes and a few odd shapes
 (row by row, within ``conformance.PLAIN_REL``), the SSD scan also with an
-initial state at every chunk, the oracle gate, launch counting, refused
-launches, and one DSE cell with measured rows on cuda. The kernels have no
+initial state at every chunk, bf16 flash attention on both of its routes
+with ``sq != sk``, ``q_offset``, odd K-tile walks and short query blocks at
+d = 64, 96 and 128, every
+rmsnorm path at an odd row count and every ``block_rows``, the oracle
+gate, launch counting, refused launches, and one DSE cell with measured
+rows on cuda. The kernels have no
 CPU mode, so these tests skip where torch sees no card; on a machine with
 an H100 and nvcc run them from the repo root with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
@@ -14,7 +18,9 @@ import torch
 from repro_torch.core.cost_db import CostDB
 from repro_torch.core.kernel_space import (CI_KERNEL_SHAPES, KernelShape,
                                            kernel_resources, tile_grid)
-from repro_torch.kernels import conformance, ops
+from repro_torch.kernels import _build, conformance, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.launch import dse
 
@@ -89,3 +95,82 @@ def test_ssd_kernel_threads_an_initial_state(chunk, dtype, card):
         want = ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init)
         agree = conformance.agree_with_plain(got, want)
         assert agree["passed"], (init is None, agree)
+
+
+#: (sq, sk, q_offset, causal) for bf16 flash attention on both routes
+FLASH_CASES = [
+    (128, 256, 0, True),
+    (128, 320, 64, True),   # decode-style tail: walks of 3 and 4 tiles of 64
+    (128, 256, -32, True),  # rows 0..31 see no key and average V
+    (192, 320, 0, False),   # sq != sk; 5 K tiles of 64, odd against 2 stages
+    (256, 128, 0, True),    # more queries than keys
+    (32, 256, 224, True),   # a 32-row q block: the FMA kernel
+    (1, 256, 255, True),    # one query row (decode): the FMA kernel
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("sq,sk,q_offset,causal", FLASH_CASES)
+def test_flash_bf16_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card):
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+
+    def draw(s, heads):
+        return (0.3 * torch.randn(2, s, heads, d, generator=gen, device=card)
+                ).to(torch.bfloat16)
+
+    q, k, v = draw(sq, 4), draw(sk, 2), draw(sk, 2)
+    for bq, bk in [(64, 64), (64, 128), (128, 64), (128, 128)]:
+        bq_, bk_ = min(bq, sq), min(bk, sk)
+        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64):
+            continue
+        key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
+        assert key.endswith("wgmma") == (d != 96 and sq >= 64)
+        kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
+        before = _build.LAUNCHES[key]
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[key] == before + 1
+        agree = conformance.agree_with_plain(
+            got, fa.flash_attention_plain(q, k, v, **kw))
+        assert agree["passed"], (bq, bk, agree)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_refuses_tiles_it_does_not_instantiate(card):
+    # the wrapper sends (256, 64) to the FMA kernel; the wgmma launcher
+    # itself refuses it
+    q = (0.3 * torch.randn(1, 256, 2, 64, device=card)).to(torch.bfloat16)
+    before = _build.LAUNCHES["flash_attention/fma"]
+    got = fa.flash_attention_cuda(q, q, q, block_q=256, block_k=64)
+    assert _build.LAUNCHES["flash_attention/fma"] == before + 1
+    assert conformance.agree_with_plain(
+        got, fa.flash_attention_plain(q, q, q, block_q=256, block_k=64))["passed"]
+    o = torch.empty_like(q)
+    err = _build.library().flash_attention_wgmma_launch(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 256, 256, 2, 2,
+        64, 256, 64, 1, 0, 0.125, fa.wgmma_threads(256),
+        fa.smem_bytes_wgmma(256, 64, 64), _build.stream_ptr(card))
+    assert err != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rows", [32, 64, 128, 256])
+@pytest.mark.parametrize("rows,d,dtype,kind", [
+    (8193, 4096, torch.bfloat16, "registers"),  # llama3-8b rows, one left over
+    (8193, 6144, torch.bfloat16, "two-pass"),
+    (301, 100, torch.bfloat16, "scalar"),
+    (173, 96, torch.float32, "registers"),
+])
+def test_rmsnorm_paths_match_plain(rows, d, dtype, kind, block_rows, card):
+    gen = torch.Generator(device=card).manual_seed(rows + d)
+    x = (0.3 * torch.randn(rows, d, generator=gen, device=card)).to(dtype)
+    w = (0.3 * torch.randn(d, generator=gen, device=card)).to(dtype)
+    assert rn.path(d, x.element_size()) == kind
+    before = _build.LAUNCHES[f"rmsnorm/{kind}"]
+    got = rn.rmsnorm_cuda(x, w, block_rows=block_rows)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"rmsnorm/{kind}"] == before + 1
+    agree = conformance.agree_with_plain(
+        got, rn.rmsnorm_plain(x, w, block_rows=block_rows))
+    assert agree["passed"], agree

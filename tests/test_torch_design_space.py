@@ -100,8 +100,9 @@ def test_default_attention_tile_is_repaired_to_fit_shared_memory():
     p = baseline_kernel_point(shape, template)
     assert template.validate(p) == (True, "")
     res = ks.kernel_resources(shape, p.dims)
-    assert res.vmem_bytes == flash_attention.smem_bytes(
-        p.dims["block_q"], p.dims["block_k"], 128, 2) <= H100_SXM.smem_per_block
+    assert res.route == "wgmma"  # bf16 at d=128
+    assert res.vmem_bytes == flash_attention.smem_bytes_wgmma(
+        p.dims["block_q"], p.dims["block_k"], 128) <= H100_SXM.smem_per_block
     big = ks.kernel_resources(shape, {"block_q": 512, "block_k": 512, "causal": True})
     assert not big.feasible
 
