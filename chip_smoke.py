@@ -12,13 +12,16 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    torch version on the card: the points the Hopper resource model calls
    feasible must launch and agree row by row within
    ``conformance.PLAIN_REL`` of each row's largest value (for the SSD scan
-   y and the final state, with and without an ``initial_state``), each
-   through the route the resource model names (flash attention: ``wgmma``
-   or ``fma``; rmsnorm: ``registers``, ``two-pass`` or ``scalar``), the
+   y and the final state, with and without an ``initial_state``, and the
+   oracle gate at every feasible chunk), each through the route the
+   resource model names (flash attention and the SSD scan: ``wgmma`` or
+   ``fma``; rmsnorm: ``registers``, ``two-pass`` or ``scalar``), the
    others must be refused; then bf16 flash attention's card cases on both
    routes (``sq != sk``, ``q_offset`` of 64, 0 and -32, non-causal, odd
    K-tile walks, d = 64, 96 and 128, 256-row, 32-row and one-row query
-   blocks) and rmsnorm at 8193 x 4096 on every path and ``block_rows``;
+   blocks), the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
+   state size, with and without an initial state, five chunks of three
+   heads) and rmsnorm at 8193 x 4096 on every path and ``block_rows``;
 3. the main path, ``repro_torch.launch.dse`` once per kernel on its
    full-width shape (vecmul and rmsnorm: greedy, 2 iterations; flash
    attention and the SSD scan: the default ensemble with the surrogate
@@ -26,25 +29,30 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    feasible tiles are modelled within 1.7x of each other, and 3.0 for the
    SSD scan; budget 3 and the 2 best measured by the
    promotion ladder for all): launch counts are set to 0 just before each
-   run and read just after (flash attention must have run on ``wgmma``,
-   rmsnorm on ``registers``), rows must be gate-checked on the card and
-   measured rows must say ``backend: cuda``, and the gate's state is
-   printed (with 4-6 feasible points the gate's calibration guard never
-   arms it here, so these cells do not show what it prunes); then with ``REPRO_KERNEL_INJECT_BAD`` naming the default point,
-   that point must become an ``infeasible`` row;
+   run and read just after (flash attention and the SSD scan must have run
+   on ``wgmma``, rmsnorm on ``registers``), rows must be gate-checked on
+   the card and measured rows must say ``backend: cuda``, and the gate's
+   state is printed (with 4-6 feasible points the gate's calibration guard
+   never arms it here, so these cells do not show what it prunes); then
+   with ``REPRO_KERNEL_INJECT_BAD`` naming the default point, that point
+   must become an ``infeasible`` row;
 4. at each full-width default point, the kernel's, the plain version's and
    (where one exists) one PyTorch library call's times from CUDA events,
    beside the roofline bound; then the flash kernel's time, TFLOP/s,
    shared memory, registers (model and compiler), CTAs per SM and route at
    every feasible full-width tile, rmsnorm's time, share of bound,
    ``F.rms_norm`` and the two-pass path's time on the same rows at every
-   ``block_rows``, and the SSD scan's at every
-   chunk, beside the resource model's estimate.
+   ``block_rows``, the SSD scan's at every chunk with its route, each
+   launch's time from the profiler, registers and the resource model's
+   estimate, the SSD scan's FMA route where the main path ran it, and the
+   SSD scan at zamba2-2.7b's widths (80 heads, d_state 64) on ``wgmma``,
+   held against its plain version and timed.
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
-``kernel_route`` names the kernel's own route or path), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``. It imports nothing of
-jax or of the JAX package.
+``kernel_route`` names the kernel's own route or path; a second route that
+the main path also launched has an entry of its own, ``<kernel>/<route>``),
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. It imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
 
@@ -96,13 +104,51 @@ def time_ms(fn, *, budget_s: float = 0.2, max_reps: int = 100) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ssd_bound(p, L: int, itemsize: int):
+    """(bound_ms, bound_by) of the SSD scan at shape params ``p`` and chunk
+    ``L``: the bytes it must move (x, dt, B, C read, y written, A read, the
+    final state written) and the FLOPs the function needs (C.B^T and the
+    intra-chunk products over the causal pairs, the chunk's own state and
+    the inter-chunk term), each over the card's rate for its type."""
+    from repro_torch.core.device import H100_SXM, peak_flops
+
+    b, s, nh, dh, N = p["b"], p["s"], p["nh"], p["dh"], p["N"]
+    n_chunks = b * s // L
+    pairs = L * (L + 1) // 2  # (l, s) pairs with s <= l in a chunk
+    flops = n_chunks * (2 * pairs * (N + nh * dh) + 4 * L * nh * dh * N)
+    nbytes = (2 * b * s * nh * dh + b * s * nh + 2 * b * s * N) * itemsize \
+        + nh * 4 + b * nh * dh * N * 4
+    t_bytes = nbytes / H100_SXM.hbm_bw
+    t_ops = flops / peak_flops(H100_SXM, "bfloat16" if itemsize == 2 else "float32")
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ssd_launch_split(run, reps: int = 3):
+    """Milliseconds per call of each CUDA kernel an SSD scan call launches,
+    from the profiler, as the mean over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("ssd_cumsum_kernel", "ssd_state_kernel", "ssd_intra_kernel", "ssd_wgmma_kernel")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                split[n] = split.get(n, 0.0) + e.device_time_total / reps / 1e3
+    return split
+
+
 def kernel_space_route(shape, dims) -> str:
     """The kernel's own route at a tile: the resource model's for flash
-    attention and rmsnorm, the single kernel's design for the others."""
+    attention, rmsnorm and the SSD scan, the single kernel's design for
+    vecmul."""
     from repro_torch.core.kernel_space import kernel_resources
 
-    return kernel_resources(shape, dims).route or {
-        "vecmul": "elementwise", "ssd_scan": "fma"}[shape.kernel]
+    return kernel_resources(shape, dims).route or {"vecmul": "elementwise"}[shape.kernel]
 
 
 def main() -> None:
@@ -194,6 +240,22 @@ def main() -> None:
                 if worst is None or agree["ratio"] > worst["ratio"]:
                     worst = agree
                 n_ok += 1
+        if shape.kernel == "ssd_scan":
+            # the oracle gate (the exact sequential recurrence) at every
+            # feasible chunk, on the same inputs, within the reference's
+            # tolerance
+            want = conformance.run_reference(shape, {}, inputs)
+            gate = {}
+            for dims in tile_grid(shape):
+                if kernel_resources(shape, dims).feasible:
+                    chk = conformance.check_candidate(shape, dims, inputs=inputs, want=want)
+                    if not chk["passed"]:
+                        fail(f"{shape.name} {dims}: oracle gate {chk}")
+                    gate[dims["chunk"]] = f"{chk['max_abs_err']:.3g}"
+            print(f"gate {shape.name}: every feasible chunk within "
+                  f"{conformance.tolerance('ssd_scan', shape.dtype)} of the oracle, "
+                  f"max|err| by chunk {gate}", flush=True)
+            del want
         print(f"grid {shape.name}: {n_ok} feasible runs "
               f"({len(variants)} per point) agree with the plain "
               f"version row by row within {rel:.3g} of each row's max |out| "
@@ -238,6 +300,29 @@ def main() -> None:
           f"non-causal, odd walks, d 64/96/128, block_q 256, 32 and 1 query rows) "
           f"agree with the plain version row by row (worst row err/limit {worst:.3g}); "
           f"runs per route {routes}", flush=True)
+    # the bf16 SSD scan on its wgmma route at every instantiated (chunk, N),
+    # with and without an initial state, over five chunks of three heads
+    n_ok = 0
+    worst = 0.0
+    for chunk in ssd.WGMMA_CHUNKS:
+        for N in ssd.WGMMA_N:
+            shape = KernelShape("ssd_wgmma", "ssd_scan",
+                                {"b": 1, "s": 5 * chunk, "nh": 3, "dh": 64, "N": N}, "bfloat16")
+            x, dt, A, B, C = conformance.make_inputs(shape, device=dev)
+            gen = torch.Generator(device=dev).manual_seed(chunk + N)
+            for s0 in (None, 0.3 * torch.randn(1, 3, 64, N, generator=gen, device=dev)):
+                before = _build.LAUNCHES["ssd_scan/wgmma"]
+                agree = conformance.agree_with_plain(
+                    ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=s0),
+                    ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=s0))
+                if not agree["passed"] or _build.LAUNCHES["ssd_scan/wgmma"] != before + 1:
+                    fail(f"ssd bf16 chunk={chunk} N={N} initial_state={s0 is not None} "
+                         f"on wgmma: {agree}")
+                worst = max(worst, agree["ratio"])
+                n_ok += 1
+    print(f"cases ssd_scan bf16: {n_ok} runs (chunk 64/128/256 x N 64/128, with and "
+          f"without initial_state, 5 chunks, 3 heads) agree with the plain version row by "
+          f"row on wgmma (worst row err/limit {worst:.3g})", flush=True)
     # rmsnorm at an odd row count on every path and block_rows
     n_ok = 0
     worst = 0.0
@@ -271,6 +356,7 @@ def main() -> None:
                      "--iterations", "3"],
     }
     launches = {}
+    main_routes = {}
     picks = {}
     for kernel, shape_name in full.items():
         db_dir = OUT / kernel
@@ -296,7 +382,10 @@ def main() -> None:
                   f"val_rmse={g['val_rmse']:.3f} n={g['n']}", flush=True)
         if counts[kernel] == 0:
             fail(f"{kernel}: the main path launched its kernel no time")
-        new_route = {"flash_attention": "wgmma", "rmsnorm": "registers"}.get(kernel)
+        main_routes[kernel] = {k.split("/")[1]: n for k, n in route_counts.items()
+                               if k.startswith(kernel + "/")}
+        new_route = {"flash_attention": "wgmma", "rmsnorm": "registers",
+                     "ssd_scan": "wgmma"}.get(kernel)
         if new_route and route_counts.get(f"{kernel}/{new_route}", 0) == 0:
             fail(f"{kernel}: the main path never launched the {new_route} kernel")
         if any(d.status == "error" for d in rows):
@@ -354,17 +443,9 @@ def main() -> None:
             nbytes = (2 * x.numel() + w.numel()) * x.element_size()
             flops = 4 * x.numel()
         elif kernel == "ssd_scan":
-            x, dt, A, B, C = inputs
-            run = lambda: ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=dims["chunk"])  # noqa: E731
+            run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=dims["chunk"])  # noqa: E731
             lib = None  # no one PyTorch call computes the SSD scan
-            L, N, nh, dh = dims["chunk"], p["N"], p["nh"], p["dh"]
-            n_chunks = p["b"] * p["s"] // L
-            pairs = L * (L + 1) // 2  # (l, s) pairs with s <= l in a chunk
-            # C.B^T and the intra-chunk products over the causal pairs, the
-            # chunk's own state and the inter-chunk term
-            flops = n_chunks * (2 * pairs * (N + nh * dh) + 4 * L * nh * dh * N)
-            nbytes = (2 * x.numel() + dt.numel() + B.numel() + C.numel()) * x.element_size() \
-                + A.numel() * 4 + p["b"] * nh * dh * N * 4
+            bound_ms, bound_by = ssd_bound(p, dims["chunk"], inputs[0].element_size())
         else:
             q, k, v = inputs
             run = lambda: fa.flash_attention_cuda(  # noqa: E731
@@ -383,22 +464,26 @@ def main() -> None:
         if not agree["passed"]:
             fail(f"{kernel} at its default point: kernel vs plain {agree}")
         err = agree["max_abs_err"]
-        t_bytes = nbytes / H100_SXM.hbm_bw
-        t_ops = flops / peak_flops(H100_SXM, shape.dtype)
-        bound_ms = max(t_bytes, t_ops) * 1e3
+        if kernel != "ssd_scan":
+            t_bytes = nbytes / H100_SXM.hbm_bw
+            t_ops = flops / peak_flops(H100_SXM, shape.dtype)
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
         ms = time_ms(run)
         plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, inputs),
                            budget_s=0.5, max_reps=10)
         library_ms = time_ms(lib) if lib is not None else None
         mod = modules[kernel]
         kernel_route = kernel_space_route(shape, dims)
-        source = fa.SOURCES[kernel_route] if kernel == "flash_attention" else mod.SOURCE
+        source = (mod.SOURCES[kernel_route] if kernel in ("flash_attention", "ssd_scan")
+                  else mod.SOURCE)
         results.append({
             "name": kernel, "route": "cuda", "kernel_route": kernel_route, "source": source,
-            "replaces": mod.REPLACES, "launches": launches[kernel],
+            "replaces": mod.REPLACES,
+            "launches": main_routes[kernel].get(kernel_route, 0) if main_routes[kernel]
+            else launches[kernel],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
         })
         lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         print(f"time {kernel} {shape_name} {dims}: kernel {ms:.4f} ms, plain "
@@ -468,27 +553,69 @@ def main() -> None:
               f"{res.blocks_per_sm} CTAs/SM; two-pass {tp_ms:.4f} ms [{card}]", flush=True)
     del x, w
 
-    # and the SSD scan's at every chunk, with each of its three launches'
-    # share from the profiler (the mean over 3 calls)
-    from torch.profiler import ProfilerActivity, profile
-
+    # and the SSD scan's at every chunk: its route, each launch's share from
+    # the profiler (the mean over 3 calls), the compiled registers of the
+    # wgmma kernel, and the resource model's estimate
     shape = KERNEL_SHAPE_BY_NAME[full["ssd_scan"]]
+    p = shape.params
     inputs = conformance.make_inputs(shape, device=dev)
     for dims in tile_grid(shape):
         res = kernel_resources(shape, dims)
-        run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=dims["chunk"])  # noqa: E731
+        L = dims["chunk"]
+        run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=L)  # noqa: E731
         ms = time_ms(run, max_reps=20)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                run()
-            torch.cuda.synchronize()
-        split = {e.key.split("<")[0].split()[-1]: e.device_time_total / e.count / 1e3
-                 for e in prof.key_averages() if e.key.split("<")[0].split()[-1]
-                 in ("ssd_cumsum_kernel", "ssd_state_kernel", "ssd_intra_kernel")}
+        split = ssd_launch_split(run)
+        regs, local = (ssd.wgmma_attributes(L, p["N"], p["dh"]) if res.route == "wgmma"
+                       else (0, 0))
+        bound_ms, _ = ssd_bound(p, L, 2)
         print(f"sweep ssd_scan {dims}: kernel {ms:.4f} ms ("
               + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items()))
-              + f"), modelled {res.est_latency_us / 1e3:.4f} ms, smem {res.vmem_bytes} B, "
-              f"{res.blocks_per_sm} intra blocks/SM [{card}]", flush=True)
+              + f"), bound {bound_ms:.4f} ms, modelled {res.est_latency_us / 1e3:.4f} ms, "
+              f"route {res.route}, smem {res.vmem_bytes} B, registers {res.regs_per_thread} "
+              f"modelled / {regs} compiled ({local} B local), {res.blocks_per_sm} "
+              f"CTAs/SM [{card}]", flush=True)
+    # the FMA route on the main path (chunk 32, wgmma's M being 64): its own
+    # entry beside the wgmma one
+    n_fma = main_routes["ssd_scan"].get("fma", 0)
+    if n_fma:
+        dims = {"chunk": max(d["chunk"] for d in tile_grid(shape)
+                             if kernel_resources(shape, d).route == "fma")}
+        run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=dims["chunk"])  # noqa: E731
+        agree = conformance.agree_with_plain(run(), conformance.run_plain(shape, dims, inputs))
+        if not agree["passed"]:
+            fail(f"ssd_scan fma at {dims}: kernel vs plain {agree}")
+        bound_ms, bound_by = ssd_bound(p, dims["chunk"], 2)
+        ms = time_ms(run, max_reps=20)
+        plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, inputs),
+                           budget_s=0.5, max_reps=10)
+        results.append({
+            "name": "ssd_scan/fma", "route": "cuda", "kernel_route": "fma",
+            "source": ssd.SOURCES["fma"], "replaces": ssd.REPLACES, "launches": n_fma,
+            "max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+        print(f"time ssd_scan/fma {shape.name} {dims}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms, {n_fma} launches on the main "
+              f"path [{card}]", flush=True)
+    del inputs
+
+    # zamba2-2.7b's widths (80 heads of 64, d_state 64) on the wgmma route,
+    # against the plain version and timed
+    shape = KernelShape("ssd_zamba2_2_7b_b8_s4096_bf16", "ssd_scan",
+                        {"b": 8, "s": 4096, "nh": 80, "dh": 64, "N": 64}, "bfloat16")
+    inputs = conformance.make_inputs(shape, device=dev)
+    for L in ssd.WGMMA_CHUNKS:
+        before = _build.LAUNCHES["ssd_scan/wgmma"]
+        agree = conformance.agree_with_plain(ssd.ssd_scan_cuda(*inputs, chunk=L),
+                                             ssd.ssd_scan_plain(*inputs, chunk=L))
+        if not agree["passed"] or _build.LAUNCHES["ssd_scan/wgmma"] != before + 1:
+            fail(f"{shape.name} chunk={L} on wgmma: kernel vs plain {agree}")
+        ms = time_ms(lambda: ssd.ssd_scan_cuda(*inputs, chunk=L), max_reps=20)
+        bound_ms, bound_by = ssd_bound(shape.params, L, 2)
+        res = kernel_resources(shape, {"chunk": L})
+        print(f"time ssd_scan {shape.name} chunk={L}: kernel {ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound, "
+              f"modelled {res.est_latency_us / 1e3:.4f} ms, row check err/limit "
+              f"{agree['ratio']:.3g} [{card}]", flush=True)
     del inputs
 
     print(json.dumps({"kernels": results}), flush=True)

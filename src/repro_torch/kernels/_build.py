@@ -51,6 +51,8 @@ SIGNATURES = {
                                      _I, _I, _I, _I, _F, _I, _I, _P],
     "flash_attention_wgmma_attributes": [_I, _I, _I, _P, _P],
     "ssd_scan_launch": [_P] * 10 + [_I] * 13 + [_P],
+    "ssd_scan_wgmma_launch": [_P] * 9 + [_I] * 8 + [_P],
+    "ssd_scan_wgmma_attributes": [_I, _I, _I, _P, _P],
 }
 
 #: launches per kernel, and per kernel and route under "<kernel>/<route>":

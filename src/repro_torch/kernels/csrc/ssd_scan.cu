@@ -17,7 +17,11 @@
 // work it needs (~80 GFLOP with the causal half of each chunk's L x L block)
 // is 0.08 ms at the bf16 tensor-core peak. These kernels do every product as
 // f32 FMAs on the CUDA cores, so they cannot go below FLOP / 67e12 s
-// (~1.2 ms); wgmma is later work.
+// (~1.2 ms). bf16 calls at the sizes csrc/ssd_scan_wgmma.cu is instantiated
+// for (dh 64, N 64 or 128, chunk 64-256) take that kernel instead, with
+// every product on wgmma and no y_inter scratch
+// (repro_torch/kernels/ssd_scan.py::route); this file runs the rest: f32,
+// chunk 32 and below, and other widths.
 //
 // What the design does about it. The Pallas block holds an [L, L, nh] f32
 // decay tensor in VMEM (12.6 MB at L=256, nh=48); a Hopper block has 227 KB.
@@ -38,8 +42,7 @@
 //     The y_inter scratch does: f32 [b,s,nh,dh], 402.7 MB at mamba2-780m
 //     widths, written here and read back by kernel 3, so 805 MB of traffic
 //     beyond the scan's 435 MB bound (0.24 ms at 3.35 TB/s). It is small
-//     beside the FMA time today and becomes the floor once the products
-//     move to wgmma.
+//     beside the FMA time; the wgmma route keeps y_inter in registers.
 //  3. ssd_intra_kernel: one block per (batch, chunk, row tile of tl rows).
 //     It computes C . B^T for its rows once ([<=L][tl] in shared memory,
 //     B staged tl rows at a time) and reuses it for every head. For each
@@ -303,6 +306,24 @@ static long long state_smem(int L, int N, int tq, int ps) {
                 2LL * pad4(L) + (long long)N * ps + (long long)ps * (N + 4));
 }
 
+// the chunk cumsum alone, cs [n_rows * L, nh] f32 from dt in `dtype`; the
+// bf16 wgmma route (csrc/ssd_scan_wgmma.cu) launches it too
+extern "C" int ssd_cumsum_launch(const void* dt, const void* A, void* cs, long long n_rows,
+                                 int L, int nh, int dtype, void* stream) {
+  if (n_rows <= 0 || L <= 0 || nh <= 0 || (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
+    return (int)cudaErrorInvalidValue;
+  const long long n_cs = n_rows * nh;
+  const unsigned blocks = (unsigned)((n_cs + 255) / 256);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    ssd_cumsum_kernel<float><<<blocks, 256, 0, st>>>((const float*)dt, (const float*)A,
+                                                     (float*)cs, n_rows, L, nh);
+  else
+    ssd_cumsum_kernel<__nv_bfloat16><<<blocks, 256, 0, st>>>(
+        (const __nv_bfloat16*)dt, (const float*)A, (float*)cs, n_rows, L, nh);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 static int launch(const void* x, const void* dt, const void* A, const void* B, const void* C,
                   const void* s0, void* cs, void* y_inter, void* y, void* s_final, int b, int s,
@@ -310,10 +331,8 @@ static int launch(const void* x, const void* dt, const void* A, const void* B, c
                   int smem_intra, int smem_state, cudaStream_t st) {
   const int nc = s / L;
   const long long n_rows = (long long)b * nc;
-  const long long n_cs = n_rows * nh;
-  ssd_cumsum_kernel<T><<<(unsigned)((n_cs + 255) / 256), 256, 0, st>>>(
-      (const T*)dt, (const float*)A, (float*)cs, n_rows, L, nh);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = (cudaError_t)ssd_cumsum_launch(
+      dt, A, cs, n_rows, L, nh, sizeof(T) == 4 ? DTYPE_F32 : DTYPE_BF16, st);
   if (e != cudaSuccess) return (int)e;
 
   e = cudaFuncSetAttribute(ssd_state_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

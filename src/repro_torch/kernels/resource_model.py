@@ -194,42 +194,81 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
         **launch)
 
 
+#: registers per thread the model gives the SSD wgmma kernel, for its
+#: blocks per SM: a warpgroup's 64 columns of the state, the y tile and G
+#: (32 f32 each), P's two bf16 parts (32) and 48 for addresses, cs and loops
+SSD_WGMMA_REGISTERS = 32 + 32 + 32 + 32 + 48
+
+
 def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
                        itemsize: int = 2, dev: DeviceModel = H100_SXM,
                        ) -> KernelResources:
-    """The three launches of ``csrc/ssd_scan.cu`` at one chunk length,
-    their times added. ``vmem_bytes`` is the larger of the two blocks'
-    shared memory (the intra kernel's, at every chunk of the pool)."""
+    """The launches of the route the wrapper takes at one chunk length
+    (``ssd_scan.route``), their times added: on ``wgmma`` the chunk cumsum
+    and one chunk walk per (batch, head) on the tensor cores
+    (``csrc/ssd_scan_wgmma.cu``); on ``fma`` the cumsum, the state walk and
+    the intra-chunk kernel of ``csrc/ssd_scan.cu``. ``vmem_bytes`` is the
+    largest block's shared memory."""
     L = min(chunk, s)
     nc = s // L
-    tl, ps = _ssd.row_tile(L), max(_ssd.state_slice(dh), 1)
-    n_rt = L // tl
-    walked = n_rt * (n_rt + 1) // 2  # s tiles the row tiles of a chunk walk
-    smem_i = _ssd.smem_bytes_intra(L, N, dh)
-    smem_s = _ssd.smem_bytes_state(L, N, dh)
-    threads = _ssd.THREADS
-    launches = [
-        # cumsum: one thread per (batch, chunk, head), 256 a block
-        dict(smem=0, threads=256, n_blocks=max(math.ceil(b * nc * nh / 256), 1),
-             flops=2 * b * s * nh, nbytes=b * s * nh * (itemsize + 4)),
-        # state walk + inter-chunk term: x, B, C, dt, cs read, y_inter
-        # written in f32, the final state written
-        dict(smem=smem_s, threads=threads, n_blocks=b * nh * (dh // ps),
-             flops=4 * b * s * nh * dh * N + 2 * b * nc * nh * dh * N,
-             nbytes=(b * s * nh * dh * (itemsize + 4)
-                     + b * s * (2 * N * itemsize + nh * (itemsize + 4))
-                     + b * nh * dh * N * 4)),
-        # intra-chunk term: C.B^T once per row tile, then per head the
-        # masked decay tile and its product with dt*x, over the s tiles at
-        # or below the diagonal; y_inter read, y written
-        dict(smem=smem_i, threads=threads, n_blocks=b * nc * n_rt,
-             flops=b * nc * walked * tl * tl * (2 * N + nh * (2 * dh + 4)),
-             nbytes=b * nc * (walked * tl * (nh * dh * itemsize
-                                             + nh * (itemsize + 4) + N * itemsize)
-                              + L * N * itemsize + L * nh * dh * (4 + itemsize))),
-    ]
+    route = _ssd.route(_DTYPE_OF_ITEMSIZE[itemsize], L, dh, N)
+    # cumsum: one thread per (batch, chunk, head), 256 a block
+    cumsum = dict(smem=0, threads=256, n_blocks=max(math.ceil(b * nc * nh / 256), 1),
+                  flops=2 * b * s * nh, nbytes=b * s * nh * (itemsize + 4))
+    if route == "wgmma":
+        n_rt = L // 64
+        pairs = n_rt * (n_rt + 1) // 2  # 64 x 64 tiles at or below the diagonal
+        smem = _ssd.smem_bytes_wgmma(L, N, dh)
+        threads = _ssd.wgmma_threads(L, N, dh)
+        # where two CTAs share an SM, the launch bounds cap the registers at
+        # what two allow
+        regs = min(SSD_WGMMA_REGISTERS,
+                   dev.regs_per_sm // (_ssd.wgmma_ctas_per_sm(L, N, dh) * threads) // 8 * 8)
+        walk = dict(
+            smem=smem, threads=threads, n_blocks=b * nh, regs=regs,
+            peak=dev.peak_flops_bf16,
+            # per chunk: C.S_prev^T and the state update, then G and P.x
+            # (twice: P's hi and lo parts) over whole diagonal tiles, G
+            # recomputed for every head
+            flops=b * nh * nc * (4 * L * dh * N + pairs * 2 * 64 * 64 * (N + 2 * dh)),
+            # x read and y written once; B and C once (the heads of a batch
+            # share them in L2); cs and dt read; the final state written
+            nbytes=(2 * b * s * nh * dh * itemsize + 2 * b * s * N * itemsize
+                    + b * s * nh * (4 + itemsize) + 4 * b * nh * dh * N))
+        launches = [cumsum, walk]
+        feasible = _fits(smem, threads, dev)
+        occupancy = blocks_per_sm(smem, threads, dev, regs)
+    else:
+        tl, ps = _ssd.row_tile(L), max(_ssd.state_slice(dh), 1)
+        n_rt = L // tl
+        walked = n_rt * (n_rt + 1) // 2  # s tiles the row tiles of a chunk walk
+        smem_i = _ssd.smem_bytes_intra(L, N, dh)
+        smem_s = _ssd.smem_bytes_state(L, N, dh)
+        threads = _ssd.THREADS
+        launches = [
+            cumsum,
+            # state walk + inter-chunk term: x, B, C, dt, cs read, y_inter
+            # written in f32, the final state written
+            dict(smem=smem_s, threads=threads, n_blocks=b * nh * (dh // ps),
+                 flops=4 * b * s * nh * dh * N + 2 * b * nc * nh * dh * N,
+                 nbytes=(b * s * nh * dh * (itemsize + 4)
+                         + b * s * (2 * N * itemsize + nh * (itemsize + 4))
+                         + b * nh * dh * N * 4)),
+            # intra-chunk term: C.B^T once per row tile, then per head the
+            # masked decay tile and its product with dt*x, over the s tiles at
+            # or below the diagonal; y_inter read, y written
+            dict(smem=smem_i, threads=threads, n_blocks=b * nc * n_rt,
+                 flops=b * nc * walked * tl * tl * (2 * N + nh * (2 * dh + 4)),
+                 nbytes=b * nc * (walked * tl * (nh * dh * itemsize
+                                                 + nh * (itemsize + 4) + N * itemsize)
+                                  + L * N * itemsize + L * nh * dh * (4 + itemsize))),
+        ]
+        smem = max(smem_i, smem_s)
+        feasible = (_ssd.supported(L, N, dh) and _fits(smem_i, threads, dev)
+                    and _fits(smem_s, threads, dev))
+        regs = 0
+        occupancy = blocks_per_sm(smem_i, threads, dev)
     times = [_launch_time(dev=dev, **k) for k in launches]
-    smem = max(smem_i, smem_s)
     return KernelResources(
         name="ssd_scan",
         vmem_bytes=smem,
@@ -238,11 +277,12 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
         vpu_aligned=(dh * itemsize) % 16 == 0,
         est_cycles_per_block=sum(t for t, _ in times) * dev.clock_hz,
         est_latency_us=sum(total for _, total in times) * 1e6,
-        feasible=(_ssd.supported(L, N, dh) and _fits(smem_i, threads, dev)
-                  and _fits(smem_s, threads, dev)),
+        feasible=feasible,
         notes=f"chunk={L} nh={nh} dh={dh} N={N}",
         threads=threads,
-        blocks_per_sm=blocks_per_sm(smem_i, threads, dev),
+        blocks_per_sm=occupancy,
+        regs_per_thread=regs,
+        route=route,
     )
 
 

@@ -13,26 +13,102 @@ chunk:
 
 y = (y_intra + y_inter) rounded once to x's dtype; the final state is f32.
 
-``ssd_scan_cuda`` launches the hand-written Hopper kernels of
-``csrc/ssd_scan.cu`` (three launches from one C entry point: the chunk
-cumsum, the state walk with the inter-chunk term, and the intra-chunk
-term). ``ssd_scan_plain`` computes the same function in plain torch over
-the same chunks, with the cumsum taken in the kernel's order, so the CPU
-tests reach the chunking, the recurrence and ``initial_state``.
+``ssd_scan_cuda`` launches one of two hand-written Hopper kernels, chosen
+by :func:`route` before the launch. bf16 at dh in ``WGMMA_DH``, N in
+``WGMMA_N`` and a chunk in ``WGMMA_CHUNKS`` takes ``csrc/ssd_scan_wgmma.cu``
+(two launches: the chunk cumsum, then one chunk walk per (batch, head) on
+``wgmma`` with the state in registers). Every other call takes
+``csrc/ssd_scan.cu`` (three launches: the chunk cumsum, the state walk with
+the inter-chunk term, and the intra-chunk term, on f32 FMAs). A failed
+build or launch raises; neither route stands in for the other.
+``ssd_scan_plain`` computes the same function in plain torch over the same
+chunks, with the cumsum taken in the kernel's order, so the CPU tests reach
+the chunking, the recurrence and ``initial_state``. On the wgmma route it
+rounds to bf16 where that kernel feeds the tensor cores one bf16 value:
+x * w for the chunk's own state, and S_prev for the inter-chunk term (P
+enters that kernel's products as two bf16 parts, close enough to f32).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.device import H100_SXM
 from repro_torch.kernels import _build
 
-SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+SOURCES = {"fma": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "wgmma": "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu"}
 REPLACES = "src/repro/kernels/ssd_scan.py:24"
 
-#: threads per CUDA block (state and intra kernels)
+#: threads per CUDA block of the FMA route (state and intra kernels)
 THREADS = 256
+
+#: the wgmma route's sizes (``SSD_WGMMA_CASE`` in its source lists the same
+#: product): head dim, state size and chunk. wgmma's M is 64, so a chunk
+#: below 64 has no tile; mamba2-780m has N 128, zamba2-2.7b N 64
+WGMMA_DH = (64,)
+WGMMA_N = (64, 128)
+WGMMA_CHUNKS = (64, 128, 256)
+
+
+def route(dtype: torch.dtype, chunk: int, dh: int, N: int) -> str:
+    """Which kernel runs a call at the chunk it runs (``min(chunk, s)``),
+    decided before the launch: ``"wgmma"`` for bf16 at a size the wgmma
+    kernel is instantiated for, ``"fma"`` otherwise (f32, chunk 32, any
+    other dh or N)."""
+    return ("wgmma" if dtype == torch.bfloat16 and dh in WGMMA_DH
+            and N in WGMMA_N and chunk in WGMMA_CHUNKS else "fma")
+
+
+def _wgmma_smem(chunk: int, N: int, dh: int, stages: int) -> int:
+    stage = chunk * (2 * N + dh) * 2 + (8 * chunk + 1023) // 1024 * 1024
+    return 1024 + stages * stage + dh * N * 2 + 8 * stages * (chunk // 64 + 1)
+
+
+def wgmma_stages(chunk: int, N: int, dh: int = 64) -> int:
+    """Chunks in flight in the wgmma kernel's TMA ring: 2 where they fit one
+    block's shared memory, else 1 (chunk 256 at N 128)."""
+    return 2 if _wgmma_smem(chunk, N, dh, 2) <= H100_SXM.smem_per_block else 1
+
+
+def smem_bytes_wgmma(chunk: int, N: int, dh: int = 64) -> int:
+    """Dynamic shared memory the wgmma kernel asks for: 1024 bytes of
+    alignment slack; per stage C, B and x of one chunk in bf16 and its cs
+    and dt in f32 (padded to 1024 bytes); S_prev in bf16; the mbarriers.
+    The launch and the resource model both call this."""
+    return _wgmma_smem(chunk, N, dh, wgmma_stages(chunk, N, dh))
+
+
+def _two_ctas_fit(chunk: int, N: int, dh: int) -> bool:
+    dev = H100_SXM
+    return 2 * (smem_bytes_wgmma(chunk, N, dh) + dev.smem_reserved_per_block) <= dev.smem_per_sm
+
+
+def wgmma_warpgroups(chunk: int, N: int, dh: int = 64) -> int:
+    """The wgmma kernel's consumer warpgroups: one per 64 columns of the
+    state, which each holds in registers; at N = 64 a second one (holding
+    no state, taking half the row tiles) where two CTAs of one warpgroup
+    would not fit an SM's shared memory (chunk 256)."""
+    if N >= 128:
+        return N // 64
+    return 1 if _two_ctas_fit(chunk, N, dh) else 2
+
+
+def wgmma_threads(chunk: int, N: int, dh: int = 64) -> int:
+    """The wgmma kernel's threads: its consumer warpgroups and the producer
+    warp."""
+    return 128 * wgmma_warpgroups(chunk, N, dh) + 32
+
+
+def wgmma_ctas_per_sm(chunk: int, N: int, dh: int = 64) -> int:
+    """CTAs of the wgmma kernel its launch bounds ask one SM to hold: 2
+    where two fit the SM's shared memory and still leave each thread 168
+    registers (one consumer warpgroup; the compiler then keeps each
+    thread's registers to what two CTAs allow), else 1."""
+    ok = H100_SXM.regs_per_sm // (2 * wgmma_threads(chunk, N, dh)) >= 168
+    return 2 if _two_ctas_fit(chunk, N, dh) and ok else 1
 
 
 def row_tile(chunk: int) -> int:
@@ -124,6 +200,9 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
     b, s, nh, dh = x.shape
     N = B.shape[-1]
     nc = s // L
+    # the wgmma kernel feeds x * w and S_prev to the tensor cores in bf16
+    rnd = ((lambda t: t.to(torch.bfloat16).float())
+           if route(x.dtype, L, dh, N) == "wgmma" else (lambda t: t))
     cs = chunk_cumsum(dt, A, L).view(b, nc, L, nh)
     xc = x.float().view(b, nc, L, nh, dh)
     dtc = dt.float().view(b, nc, L, nh)
@@ -142,7 +221,7 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
 
     # the chunk's own state and decay, then the recurrence over chunks
     w = dtc * torch.exp(cs[:, :, -1:, :] - cs)  # [b, nc, L, nh]
-    S_loc = torch.einsum("bcln,bclhp->bchpn", Bc, xc * w[..., None])
+    S_loc = torch.einsum("bcln,bclhp->bchpn", Bc, rnd(xc * w[..., None]))
     decay = torch.exp(cs[:, :, -1, :])  # [b, nc, nh]
     S = (torch.zeros(b, nh, dh, N, dtype=torch.float32, device=x.device)
          if initial_state is None else initial_state.float())
@@ -152,7 +231,7 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
         S = S * decay[:, c, :, None, None] + S_loc[:, c]
 
     # inter-chunk term
-    y_inter = torch.einsum("bcln,bchpn->bclhp", Cc, S_prev) * torch.exp(cs)[..., None]
+    y_inter = torch.einsum("bcln,bchpn->bclhp", Cc, rnd(S_prev)) * torch.exp(cs)[..., None]
     y = (y_intra + y_inter).reshape(b, s, nh, dh).to(x.dtype)
     return y, S
 
@@ -160,7 +239,7 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256,
 def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
                   initial_state: Optional[torch.Tensor] = None,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The SSD scan through ``csrc/ssd_scan.cu`` on x's card."""
+    """The SSD scan on x's card, through the kernel :func:`route` names."""
     L = _chunk(x, dt, A, B, C, chunk)
     b, s, nh, dh = x.shape
     N = B.shape[-1]
@@ -172,7 +251,8 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
                          "in float32, all on one card")
     if not all(t.is_contiguous() for t in (x, dt, A, B, C)):
         raise ValueError("ssd_scan_cuda takes contiguous tensors")
-    if not supported(L, N, dh):
+    path = route(x.dtype, L, dh, N)
+    if path == "fma" and not supported(L, N, dh):
         raise ValueError(f"ssd_scan_cuda takes dh and N multiples of 4 and a "
                          f"chunk of at most 32 (a multiple of 4), 64 or a "
                          f"multiple of 64; got dh={dh}, N={N}, chunk={L}")
@@ -182,19 +262,38 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
             raise ValueError(f"initial_state must be [b,nh,dh,N] = "
                              f"{(b, nh, dh, N)} on x's card")
         s0 = initial_state.float().contiguous()
+    s0_ptr = s0.data_ptr() if s0 is not None else None
     code = _build.dtype_code(x)
     cs = torch.empty(b, s, nh, dtype=torch.float32, device=dev)
-    y_inter = torch.empty(b, s, nh, dh, dtype=torch.float32, device=dev)
     y = torch.empty_like(x)
     S = torch.empty(b, nh, dh, N, dtype=torch.float32, device=dev)
     lib = _build.library()
-    err = lib.ssd_scan_launch(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        s0.data_ptr() if s0 is not None else None, cs.data_ptr(),
-        y_inter.data_ptr(), y.data_ptr(), S.data_ptr(), b, s, nh, dh, N, L,
-        row_tile(L), state_tile(L), state_slice(dh), code, THREADS,
-        smem_bytes_intra(L, N, dh),
-        smem_bytes_state(L, N, dh), _build.stream_ptr(dev))
-    _build.check("ssd_scan_launch", err)
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            s0_ptr, cs.data_ptr())
+    if path == "wgmma":
+        err = lib.ssd_scan_wgmma_launch(
+            *ptrs, y.data_ptr(), S.data_ptr(), b, s, nh, dh, N, L, wgmma_threads(L, N, dh),
+            smem_bytes_wgmma(L, N, dh), _build.stream_ptr(dev))
+        _build.check("ssd_scan_wgmma_launch", err)
+    else:
+        y_inter = torch.empty(b, s, nh, dh, dtype=torch.float32, device=dev)
+        err = lib.ssd_scan_launch(
+            *ptrs, y_inter.data_ptr(), y.data_ptr(), S.data_ptr(), b, s, nh, dh, N,
+            L, row_tile(L), state_tile(L), state_slice(dh), code, THREADS,
+            smem_bytes_intra(L, N, dh), smem_bytes_state(L, N, dh),
+            _build.stream_ptr(dev))
+        _build.check("ssd_scan_launch", err)
     _build.LAUNCHES["ssd_scan"] += 1
+    _build.LAUNCHES[f"ssd_scan/{path}"] += 1
     return y, S
+
+
+def wgmma_attributes(chunk: int, N: int, dh: int = 64) -> Tuple[int, int]:
+    """(registers per thread, local bytes per thread) the compiler gave the
+    wgmma kernel at this size; builds the library. Raises for a size that
+    is not instantiated."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _build.library().ssd_scan_wgmma_attributes(
+        dh, N, chunk, ctypes.byref(regs), ctypes.byref(local))
+    _build.check("ssd_scan_wgmma_attributes", err)
+    return regs.value, local.value

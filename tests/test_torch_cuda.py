@@ -1,7 +1,9 @@
 """repro_torch kernels on the card: each CUDA kernel against its plain
 version over the full legal grid of the CI shapes and a few odd shapes
 (row by row, within ``conformance.PLAIN_REL``), the SSD scan also with an
-initial state at every chunk, bf16 flash attention on both of its routes
+initial state at every chunk, the bf16 SSD scan on its wgmma route at every
+instantiated (chunk, N) over an odd number of chunks, bf16 flash attention
+on both of its routes
 with ``sq != sk``, ``q_offset``, odd K-tile walks and short query blocks at
 d = 64, 96 and 128, every
 rmsnorm path at an odd row count and every ``block_rows``, the oracle
@@ -21,6 +23,7 @@ from repro_torch.core.kernel_space import (CI_KERNEL_SHAPES, KernelShape,
 from repro_torch.kernels import _build, conformance, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.launch import dse
 
@@ -95,6 +98,27 @@ def test_ssd_kernel_threads_an_initial_state(chunk, dtype, card):
         want = ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init)
         agree = conformance.agree_with_plain(got, want)
         assert agree["passed"], (init is None, agree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("N", ssd.WGMMA_N)
+@pytest.mark.parametrize("chunk", ssd.WGMMA_CHUNKS)
+def test_ssd_wgmma_matches_plain(chunk, N, with_state, card):
+    # five chunks (an odd count against the two-stage ring), three heads
+    shape = KernelShape("ssd_wgmma", "ssd_scan",
+                        {"b": 1, "s": 5 * chunk, "nh": 3, "dh": 64, "N": N}, "bfloat16")
+    x, dt, A, B, C = conformance.make_inputs(shape, device=card)
+    gen = torch.Generator(device=card).manual_seed(chunk + N)
+    init = 0.3 * torch.randn(1, 3, 64, N, generator=gen, device=card) if with_state else None
+    assert ssd.route(x.dtype, chunk, 64, N) == "wgmma"
+    before = _build.LAUNCHES["ssd_scan/wgmma"]
+    got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_scan/wgmma"] == before + 1
+    agree = conformance.agree_with_plain(
+        got, ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init))
+    assert agree["passed"], agree
 
 
 #: (sq, sk, q_offset, causal) for bf16 flash attention on both routes

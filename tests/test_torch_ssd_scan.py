@@ -1,10 +1,15 @@
 """repro_torch SSD scan: the plain chunk walk against the Pallas kernel
 (interpret mode) over the full chunk grid of ``ssd_s256_f32`` and the
 reference's shape sweep, the torch oracle against the jnp one,
-``initial_state`` threading, the resource model at mamba2-780m widths, and
-a walk that drops the carried state failing both the row-wise
-kernel-against-plain check and the oracle gate."""
+``initial_state`` threading, the route rule (``wgmma`` for bf16 at the
+sizes its kernel is instantiated for, ``fma`` otherwise) with the wgmma
+route's plain version against the Pallas kernel and the FMA route, the
+resource model at mamba2-780m widths and on both routes, and a walk that
+drops the carried state failing both the row-wise kernel-against-plain
+check and the oracle gate."""
 import itertools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -115,9 +120,14 @@ def test_ssd_resources_at_full_width():
     for dims in tile_grid(shape):
         res = kernel_resources(shape, dims)
         L = dims["chunk"]
-        assert res.feasible and res.threads == ssd.THREADS
-        assert res.vmem_bytes == max(ssd.smem_bytes_intra(L, 128, 64),
-                                     ssd.smem_bytes_state(L, 128, 64))
+        assert res.feasible and res.route == ssd.route(torch.bfloat16, L, 64, 128)
+        if res.route == "wgmma":  # chunks 64, 128 and 256
+            assert res.threads == ssd.wgmma_threads(L, 128) == 288
+            assert res.vmem_bytes == ssd.smem_bytes_wgmma(L, 128, 64)
+        else:  # chunk 32: wgmma's M is 64
+            assert L == 32 and res.threads == ssd.THREADS
+            assert res.vmem_bytes == max(ssd.smem_bytes_intra(L, 128, 64),
+                                         ssd.smem_bytes_state(L, 128, 64))
         assert res.vmem_bytes <= H100_SXM.smem_per_block
         # never below the bytes the scan must move over the memory rate
         min_bytes = 2 * (2 * 8 * 4096 * 48 * 64 + 8 * 4096 * (48 + 2 * 128))
@@ -184,3 +194,100 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=64)
     with pytest.raises(ValueError, match="divide"):
         ssd.ssd_scan_plain(x, dt, A, B, C, chunk=96)
+
+
+@pytest.mark.parametrize("dtype,chunk,dh,N,want", [
+    (torch.bfloat16, 64, 64, 128, "wgmma"),
+    (torch.bfloat16, 128, 64, 128, "wgmma"),
+    (torch.bfloat16, 256, 64, 128, "wgmma"),
+    (torch.bfloat16, 256, 64, 64, "wgmma"),  # zamba2-2.7b's state
+    (torch.float32, 256, 64, 128, "fma"),  # f32 stays on the FMA kernel
+    (torch.bfloat16, 32, 64, 128, "fma"),  # wgmma's M is 64
+    (torch.bfloat16, 192, 64, 128, "fma"),  # a chunk it has no tile for
+    (torch.bfloat16, 256, 32, 128, "fma"),  # another head dim
+    (torch.bfloat16, 256, 64, 48, "fma"),  # another state size
+])
+def test_route_is_decided_by_dtype_chunk_head_dim_and_state(dtype, chunk, dh, N, want):
+    assert ssd.route(dtype, chunk, dh, N) == want
+
+
+def test_wgmma_dispatch_instantiates_exactly_the_routed_sizes():
+    src = (Path(__file__).resolve().parents[1] / ssd.SOURCES["wgmma"]).read_text()
+    cases = {tuple(map(int, m)) for m in
+             re.findall(r"^\s*SSD_WGMMA_CASE\((\d+), (\d+), (\d+)\)", src, re.M)}
+    assert cases == set(itertools.product(ssd.WGMMA_DH, ssd.WGMMA_N, ssd.WGMMA_CHUNKS))
+
+
+def test_wgmma_smem_formula():
+    # per stage C, B and x of the chunk in bf16 plus cs and dt in f32 (padded
+    # to 1024 B); S_prev in bf16; one mbarrier per row tile and stage plus
+    # one per stage; two stages except at chunk 256 with N 128
+    assert ssd.smem_bytes_wgmma(256, 128) == \
+        1024 + (256 * 320 * 2 + 2048) + 64 * 128 * 2 + 8 * 5 == 183_336
+    assert ssd.wgmma_stages(256, 128) == 1
+    assert ssd.smem_bytes_wgmma(128, 128) == \
+        1024 + 2 * (128 * 320 * 2 + 1024) + 64 * 128 * 2 + 8 * 2 * 3 == 183_344
+    assert ssd.smem_bytes_wgmma(256, 64) == 210_000 <= H100_SXM.smem_per_block
+    # N 128: a consumer warpgroup per 64 state columns, one CTA an SM; N 64:
+    # one warpgroup and two CTAs an SM where they fit, else two warpgroups
+    grid = [(L, N) for N in (128, 64) for L in (64, 128, 256)]
+    assert [ssd.wgmma_warpgroups(L, N) for L, N in grid] == [2, 2, 2, 1, 1, 2]
+    assert [ssd.wgmma_threads(L, N) for L, N in grid] == [288, 288, 288, 160, 160, 288]
+    assert [ssd.wgmma_ctas_per_sm(L, N) for L, N in grid] == [1, 1, 1, 2, 2, 1]
+
+
+def _bf16_case(N, with_state):
+    rng = np.random.default_rng(7 * N + with_state)
+    x = 0.3 * rng.standard_normal((1, 256, 3, 64))
+    dt = 0.1 + 0.2 * rng.random((1, 256, 3))
+    A = -(0.5 + rng.random(3))
+    B, C = (0.3 * rng.standard_normal((1, 256, N)) for _ in range(2))
+    s0 = 0.3 * rng.standard_normal((1, 3, 64, N)) if with_state else None
+    return [a.astype(np.float32) for a in (x, dt, A, B, C)], s0
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("chunk", [64, 128, 256])
+@pytest.mark.parametrize("N", [64, 128])
+def test_wgmma_route_plain_matches_pallas_and_the_fma_route(N, chunk, with_state):
+    import jax.numpy as jnp
+
+    (x, dt, A, B, C), s0 = _bf16_case(N, with_state)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (x, dt)] + \
+        [torch.from_numpy(A)] + [torch.from_numpy(a).to(torch.bfloat16) for a in (B, C)]
+    init = None if s0 is None else torch.from_numpy(s0).float()
+    assert ssd.route(torch.bfloat16, chunk, 64, N) == "wgmma"
+    y, st = ssd.ssd_scan_plain(*bf, chunk=chunk, initial_state=init)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    tol = conformance.tolerance("ssd_scan", "bfloat16")
+    # the Pallas kernel on the same bf16 values
+    jin = [jnp.asarray(as_np(t), dtype=jnp.float32 if t.dtype == torch.float32
+                       else jnp.bfloat16) for t in bf]
+    want_y, want_s = jops.ssd_scan(*jin, chunk=chunk, interpret=True,
+                                   initial_state=None if s0 is None else jnp.asarray(s0))
+    assert max_err(y, want_y) <= tol and max_err(st, want_s) <= tol
+    # the FMA route's plain version: the same bf16 values in f32 (exactly
+    # representable) with no intermediate rounding, y rounded once
+    f32 = [t.float() for t in bf]
+    assert ssd.route(torch.float32, chunk, 64, N) == "fma"
+    fy, fs = ssd.ssd_scan_plain(*f32, chunk=chunk, initial_state=init)
+    assert max_err(y, fy.to(torch.bfloat16)) <= tol and max_err(st, fs) <= tol
+    # and the rounding of x * w and S_prev does show
+    assert not torch.equal(st, fs)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("N", [40, 64, 128])
+@pytest.mark.parametrize("dh", [24, 64])
+def test_resource_model_routes_and_refuses_as_the_wrapper(itemsize, N, dh):
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    for chunk in (16, 32, 48, 64, 96, 128, 192, 256):
+        res = ssd_scan_resources(2, 512, 3, dh, N, chunk, itemsize=itemsize)
+        path = ssd.route(dtype, chunk, dh, N)
+        assert res.route == path
+        if path == "wgmma":  # every routed size is instantiated and fits
+            assert res.feasible and res.vmem_bytes == ssd.smem_bytes_wgmma(chunk, N, dh)
+            assert res.blocks_per_sm == ssd.wgmma_ctas_per_sm(chunk, N, dh)
+        else:
+            assert res.feasible == (ssd.supported(chunk, N, dh)
+                                    and res.vmem_bytes <= H100_SXM.smem_per_block)
