@@ -36,6 +36,21 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    never arms it here, so these cells do not show what it prunes); then
    with ``REPRO_KERNEL_INJECT_BAD`` naming the default point, that point
    must become an ``infeasible`` row;
+3b. one kernel campaign (``repro_torch.launch.campaign``) over every CI
+   shape and the four full-width shapes (10 cells, one cost DB): the
+   ensemble with the surrogate gate at 3.0, 3 iterations, budget 3, the 2
+   best of each cell measured. Launch counts are set to 0 just before it
+   and read just after: every kernel must have launched, flash attention
+   and the SSD scan on ``wgmma`` and rmsnorm on ``registers``, no row may
+   be an ``error``, measured rows must say ``backend: cuda`` and
+   ``BENCH_kernels.json`` must hold 10 cells; the campaign's record (wall
+   time, rows by status, the correctness audit, the gate's state after the
+   last cell) and each cell's leaderboard row are printed. The same command
+   again must resume all 10 cells with no launch and no evaluation. Then
+   one full-width ``dse --objective pareto`` cell on flash attention
+   (ensemble, 3 iterations, the 2 leading front members measured), whose
+   launches must all be on ``wgmma``; its front and measured members are
+   printed;
 4. at each full-width default point, the kernel's, the plain version's and
    (where one exists) one PyTorch library call's times from CUDA events,
    beside the roofline bound; then the flash kernel's time, TFLOP/s,
@@ -51,7 +66,9 @@ Run from the root of a checkout on a machine with an H100 (the build needs
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
 the main path also launched has an entry of its own, ``<kernel>/<route>``),
-the card's name and power limit, and last ``{"ok": true, "device":
+``launches`` sums the main-path runs (phase 3, the campaign and the Pareto
+cell, each counted from 0; ``launches_by_path`` splits them), then the
+card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. It imports nothing of jax or of the JAX package.
 """
 from __future__ import annotations
@@ -142,6 +159,21 @@ def ssd_launch_split(run, reps: int = 3):
     return split
 
 
+def launches_of(path_counts, kernel: str, route: str):
+    """(total, by path) launches of one kernel's route on the main path:
+    for each path the route's count where the kernel has routes, else the
+    kernel's own count. Phase 3 keeps one snapshot per kernel."""
+    def one(counts, route_counts):
+        mine = {k.split("/")[1]: n for k, n in route_counts.items()
+                if k.startswith(kernel + "/")}
+        return mine.get(route, 0) if mine else counts.get(kernel, 0)
+
+    by = {}
+    for path, snap in path_counts.items():
+        by[path] = one(*snap[kernel]) if path == "dse" else one(*snap)
+    return sum(by.values()), by
+
+
 def kernel_space_route(shape, dims) -> str:
     """The kernel's own route at a tile: the resource model's for flash
     attention, rmsnorm and the SSD scan, the single kernel's design for
@@ -170,7 +202,7 @@ def main() -> None:
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels import vecmul as vm
     from repro_torch.kernels.resource_model import flash_attention_resources
-    from repro_torch.launch import dse
+    from repro_torch.launch import campaign, dse
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
@@ -355,8 +387,7 @@ def main() -> None:
         "ssd_scan": ["--strategy", "ensemble", "--gate-factor", "3.0",
                      "--iterations", "3"],
     }
-    launches = {}
-    main_routes = {}
+    path_counts = {"dse": {}}  # path -> (launch counts, route counts)
     picks = {}
     for kernel, shape_name in full.items():
         db_dir = OUT / kernel
@@ -369,7 +400,7 @@ def main() -> None:
         report = dse.main(argv)
         counts = ops.launch_counts()
         route_counts = ops.route_launch_counts()
-        launches[kernel] = counts[kernel]
+        path_counts["dse"][kernel] = (counts, route_counts)
         rows = CostDB(db_dir / "cost_db.jsonl").all()
         statuses = {st: sum(d.status == st for d in rows)
                     for st in sorted({d.status for d in rows})}
@@ -382,8 +413,6 @@ def main() -> None:
                   f"val_rmse={g['val_rmse']:.3f} n={g['n']}", flush=True)
         if counts[kernel] == 0:
             fail(f"{kernel}: the main path launched its kernel no time")
-        main_routes[kernel] = {k.split("/")[1]: n for k, n in route_counts.items()
-                               if k.startswith(kernel + "/")}
         new_route = {"flash_attention": "wgmma", "rmsnorm": "registers",
                      "ssd_scan": "wgmma"}.get(kernel)
         if new_route and route_counts.get(f"{kernel}/{new_route}", 0) == 0:
@@ -423,6 +452,104 @@ def main() -> None:
             fail(f"{kernel}: injected bad default gave {base.status}: {base.reason}")
         print(f"gate {kernel}: injected {dim}={val} -> infeasible ({base.reason})",
               flush=True)
+
+    # ---- phase 3b: one kernel campaign over every CI and full-width cell ----
+    camp_dir = OUT / "campaign"
+    shutil.rmtree(camp_dir, ignore_errors=True)
+    camp_shapes = [s.name for s in CI_KERNEL_SHAPES] + list(full.values())
+    camp_argv = ["--space", "kernels", "--archs", "all", "--shapes", ",".join(camp_shapes),
+                 "--strategy", "ensemble", "--gate-factor", "3.0", "--iterations", "3",
+                 "--budget", "3", "--measure-top-k", "2", "--out", str(camp_dir)]
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    summary = campaign.main(camp_argv)
+    camp_wall = time.perf_counter() - t
+    counts, route_counts = ops.launch_counts(), ops.route_launch_counts()
+    path_counts["campaign"] = (counts, route_counts)
+    print(f"campaign launches {counts} by route {route_counts}", flush=True)
+    for kernel in full:
+        if counts[kernel] == 0:
+            fail(f"campaign: {kernel} was launched no time")
+    for key in ("flash_attention/wgmma", "ssd_scan/wgmma", "rmsnorm/registers"):
+        if route_counts.get(key, 0) == 0:
+            fail(f"campaign: {key} was launched no time")
+    rows = CostDB(camp_dir / "cost_db.jsonl").all()
+    if any(d.status == "error" for d in rows):
+        fail(f"campaign: error rows: {[d.reason for d in rows if d.status == 'error']}")
+    measured = [d for d in rows if d.fidelity == "measured"]
+    if not measured or any(d.status != "ok" or d.metrics["backend"] != "cuda"
+                           for d in measured):
+        fail(f"campaign: measured rows must be ok on cuda: "
+             f"{[(d.status, d.metrics.get('backend')) for d in measured]}")
+    for d in rows:
+        if d.fidelity == "dryrun" and d.status == "ok":
+            err = d.metrics["max_abs_err"]
+            if not (math.isfinite(err) and err <= d.metrics["tol"]):
+                fail(f"campaign: {d.shape} {d.point} max|err| {err} beyond tol")
+    bench = json.loads((camp_dir / "BENCH_kernels.json").read_text())
+    if len(bench["cells"]) != len(camp_shapes) or summary["ran"] != len(camp_shapes):
+        fail(f"campaign: {len(bench['cells'])} cells in BENCH_kernels.json, "
+             f"{summary['ran']} ran, expected {len(camp_shapes)}")
+    statuses = {st: sum(d.status == st and d.fidelity == "dryrun" for d in rows)
+                for st in sorted({d.status for d in rows})}
+    print("campaign record " + json.dumps({
+        "wall_s": round(camp_wall, 3), "cells": summary["ran"], "rows": len(rows),
+        "dryrun_rows_by_status": statuses, "measured_rows": len(measured),
+        "evaluations": summary["evaluations"], "compiles": summary["compiles"],
+        "correctness": summary["correctness"], "gate": summary["gate"],
+        "card": card}), flush=True)
+    for r in json.loads((camp_dir / "leaderboard.json").read_text()):
+        rep = json.loads(campaign.cell_report_path(camp_dir, r["arch"], r["shape"],
+                                                   r["mesh"]).read_text())
+        print(f"campaign cell {r['arch']}/{r['shape']}: {r['n_points']} points, "
+              f"{sum(it['pruned'] for it in rep['iterations'])} pruned, bound "
+              f"{r['bound_s']} s at {r['best_point']}, measured {r['measured_us']} us "
+              f"[{r['measured_backend']}], improvement {r['improvement']}", flush=True)
+
+    # the same command again: every cell resumes, nothing launches or runs
+    ops.reset_launch_counts()
+    again = campaign.main(camp_argv)
+    relaunched = {k: n for k, n in ops.launch_counts().items() if n}
+    if (again["resumed"] != len(camp_shapes) or again["ran"] or again["evaluations"]
+            or again["compiles"] or again["measured"] or relaunched):
+        fail(f"campaign rerun: resumed {again['resumed']}, ran {again['ran']}, "
+             f"evaluations {again['evaluations']}, launches {relaunched}")
+    print(f"campaign rerun: {again['resumed']} cells resumed, 0 evaluations, "
+          f"0 launches", flush=True)
+
+    # one full-width cell under --objective pareto: the front, and its
+    # leading members measured
+    pareto_dir = OUT / "pareto"
+    shutil.rmtree(pareto_dir, ignore_errors=True)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    report = dse.main(["--space", "kernels", "--arch", "flash_attention",
+                       "--shape", full["flash_attention"], "--strategy", "ensemble",
+                       "--iterations", "3", "--budget", "3", "--measure-top-k", "2",
+                       "--objective", "pareto", "--db", str(pareto_dir / "cost_db.jsonl")])
+    pareto_wall = time.perf_counter() - t
+    counts, route_counts = ops.launch_counts(), ops.route_launch_counts()
+    path_counts["pareto_cell"] = (counts, route_counts)
+    off_route = {k: n for k, n in route_counts.items() if n and k != "flash_attention/wgmma"}
+    if route_counts.get("flash_attention/wgmma", 0) == 0 or off_route:
+        fail(f"pareto cell: launches {route_counts} are not all on flash_attention/wgmma")
+    if not report.get("front"):
+        fail("pareto cell: no front")
+    rows = CostDB(pareto_dir / "cost_db.jsonl").all()
+    measured = [d for d in rows if d.fidelity == "measured"]
+    if not measured or any(d.status != "ok" or d.metrics["backend"] != "cuda"
+                           for d in measured):
+        fail(f"pareto cell: measured rows must be ok on cuda: "
+             f"{[(d.status, d.metrics.get('backend')) for d in measured]}")
+    print(f"pareto cell flash_attention/{full['flash_attention']}: {pareto_wall:.1f} s, "
+          f"{len(rows)} rows, launches by route {route_counts}", flush=True)
+    for f in report["front"]:
+        print(f"pareto front {f['point']}: objectives {f['objectives']}, crowding "
+              f"{f['crowding']}", flush=True)
+    for d in measured:
+        print(f"pareto measured { {k: v for k, v in d.point.items() if k != '__key__'} }: "
+              f"{d.metrics['measured_us']:.2f} us (modelled "
+              f"{d.metrics['bound_s_modeled'] * 1e6:.2f} us) [{card}]", flush=True)
 
     # ---- phase 4: times at each full-width default point ----
     results = []
@@ -477,11 +604,10 @@ def main() -> None:
         kernel_route = kernel_space_route(shape, dims)
         source = (mod.SOURCES[kernel_route] if kernel in ("flash_attention", "ssd_scan")
                   else mod.SOURCE)
+        n_launches, n_by_path = launches_of(path_counts, kernel, kernel_route)
         results.append({
             "name": kernel, "route": "cuda", "kernel_route": kernel_route, "source": source,
-            "replaces": mod.REPLACES,
-            "launches": main_routes[kernel].get(kernel_route, 0) if main_routes[kernel]
-            else launches[kernel],
+            "replaces": mod.REPLACES, "launches": n_launches, "launches_by_path": n_by_path,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
         })
@@ -574,9 +700,10 @@ def main() -> None:
               f"route {res.route}, smem {res.vmem_bytes} B, registers {res.regs_per_thread} "
               f"modelled / {regs} compiled ({local} B local), {res.blocks_per_sm} "
               f"CTAs/SM [{card}]", flush=True)
-    # the FMA route on the main path (chunk 32, wgmma's M being 64): its own
-    # entry beside the wgmma one
-    n_fma = main_routes["ssd_scan"].get("fma", 0)
+    # the FMA route on the main path (chunk 32, wgmma's M being 64, and the
+    # campaign's f32 cell): its own entry beside the wgmma one, timed at
+    # full width
+    n_fma, n_fma_by = launches_of(path_counts, "ssd_scan", "fma")
     if n_fma:
         dims = {"chunk": max(d["chunk"] for d in tile_grid(shape)
                              if kernel_resources(shape, d).route == "fma")}
@@ -591,12 +718,51 @@ def main() -> None:
         results.append({
             "name": "ssd_scan/fma", "route": "cuda", "kernel_route": "fma",
             "source": ssd.SOURCES["fma"], "replaces": ssd.REPLACES, "launches": n_fma,
-            "max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "launches_by_path": n_fma_by, "max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
         print(f"time ssd_scan/fma {shape.name} {dims}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms, {n_fma} launches on the main "
               f"path [{card}]", flush=True)
     del inputs
+
+    # flash attention's FMA kernel, which the campaign's f32 cell runs: its
+    # own entry, timed at that cell's default tile
+    n_fma, n_fma_by = launches_of(path_counts, "flash_attention", "fma")
+    if n_fma:
+        shape = KERNEL_SHAPE_BY_NAME["attn_s128_f32"]
+        p = shape.params
+        dims = baseline_kernel_point(shape, KernelTemplate(shape)).dims
+        if kernel_space_route(shape, dims) != "fma":
+            fail(f"flash_attention at {shape.name} {dims} is not on the fma route")
+        q, k, v = conformance.make_inputs(shape, device=dev)
+        run = lambda: fa.flash_attention_cuda(  # noqa: E731
+            q, k, v, causal=dims["causal"], block_q=dims["block_q"], block_k=dims["block_k"])
+        agree = conformance.agree_with_plain(run(), conformance.run_plain(shape, dims,
+                                                                          (q, k, v)))
+        if not agree["passed"]:
+            fail(f"flash_attention fma at {dims}: kernel vs plain {agree}")
+        qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = (sum(min(p["sk"], i + 1) for i in range(p["sq"])) if dims["causal"]
+                 else p["sq"] * p["sk"])
+        t_ops = 4 * p["d"] * p["b"] * p["h"] * pairs / peak_flops(H100_SXM, shape.dtype)
+        t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / H100_SXM.hbm_bw
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, (q, k, v)),
+                           budget_s=0.5, max_reps=10)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh_, vh, is_causal=dims["causal"], enable_gqa=True))
+        results.append({
+            "name": "flash_attention/fma", "route": "cuda", "kernel_route": "fma",
+            "source": fa.SOURCES["fma"], "replaces": fa.REPLACES, "launches": n_fma,
+            "launches_by_path": n_fma_by, "max_abs_err": agree["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms})
+        print(f"time flash_attention/fma {shape.name} {dims}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{results[-1]['bound_ms']:.5f} ms, {n_fma} launches on the main path "
+              f"{n_fma_by} [{card}]", flush=True)
+        del q, k, v, qh, kh_, vh
 
     # zamba2-2.7b's widths (80 heads of 64, d_state 64) on the wgmma route,
     # against the plain version and timed

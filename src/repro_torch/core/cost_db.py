@@ -1,8 +1,9 @@
 """Cost-model database: the append-only store of hardware data points.
 
-Counterpart of ``repro/core/cost_db.py``, copied with what the kernel-cell
-path uses (the Pareto ordering and the plan-cell workload features wait
-for their slices). Rows are the same JSON lines, byte for byte: a row
+Counterpart of ``repro/core/cost_db.py``, copied with what the kernel
+space uses: the scalar and the Pareto rankings, the promotion ladder's
+queries and the surrogate's training set (the plan-cell workload features
+wait for their slice). Rows are the same JSON lines, byte for byte: a row
 written here reads back in the reference's ``CostDB`` and serializes the
 same way. The DB feeds the surrogate cost model's training set and the
 promotion ladder's heads.
@@ -18,6 +19,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.core.pareto import front_order
 
 
 @dataclass
@@ -146,7 +149,7 @@ def objectives_of(dp: "DataPoint") -> Dict[str, float]:
 def objective_value(dp: "DataPoint", key: str = "bound_s",
                     ) -> Optional[float]:
     """Shared objective extraction behind every ranking query (``best``,
-    ``winners``): one code path for plan rows, kernel
+    ``winners``, ``pareto_rows``): one code path for plan rows, kernel
     rows (``kernel:<name>`` archs), and measured rows. Returns None when
     the row must not rank — measured fidelity (wall clocks measure a
     different quantity than the modeled bound), failed resource gate
@@ -160,6 +163,40 @@ def objective_value(dp: "DataPoint", key: str = "bound_s",
         return None if v is None else v
     v = objectives_of(dp).get(key)
     return None if v is None else v
+
+
+def pareto_rows(rows: Sequence["DataPoint"],
+                ) -> List[Tuple["DataPoint", int, float, Dict[str, float]]]:
+    """Deterministic Pareto ordering of one cell's rows: ``(row, rank,
+    crowding, objectives)`` tuples sorted by ``(rank, -crowding, ts,
+    serialized row)``. A pure function of the row *set*: any insertion
+    order (shard merges, queue steals, kill/heal replays) yields the same
+    sequence, which is what keeps merged Pareto leaderboards
+    byte-identical.
+
+    Eligibility matches ``winners``: ``status == "ok"``, dry-run fidelity,
+    ``fits_hbm``, truthy bound; one row per design key (earliest
+    ``(ts, to_json())`` wins, mirroring ``merge_cost_dbs``). Vectors are
+    aligned over the sorted union of objective keys: a missing objective
+    is ``+inf`` (never better), maximize-objectives are negated."""
+    eligible = [d for d in rows
+                if d.status == "ok" and objective_value(d, "bound_s")]
+    by_key: Dict[str, DataPoint] = {}
+    for d in sorted(eligible, key=lambda d: (d.ts or 0.0, d.to_json())):
+        by_key.setdefault(d.point.get("__key__") or d.to_json(), d)
+    deduped = list(by_key.values())
+    if not deduped:
+        return []
+    objs = [objectives_of(d) for d in deduped]
+    keys = sorted({k for o in objs for k in o})
+    vectors = [tuple(
+        float("inf") if o.get(k) is None
+        else -float(o[k]) if k in MAXIMIZE_OBJECTIVES
+        else float(o[k])
+        for k in keys) for o in objs]
+    tiebreaks = [(d.ts or 0.0, d.to_json()) for d in deduped]
+    order, ranks, crowding = front_order(vectors, tiebreaks)
+    return [(deduped[i], ranks[i], crowding[i], objs[i]) for i in order]
 
 
 def _val_row(point_key: str) -> bool:
@@ -289,6 +326,24 @@ class CostDB:
                 break
         return out
 
+    def pareto(self, arch: str, shape: str, mesh: Optional[str] = None,
+               ) -> List[Tuple[DataPoint, int, float, Dict[str, float]]]:
+        """The cell's rows in deterministic Pareto order: ``(row, rank,
+        crowding, objectives)`` per unique feasible design, rank 0 = the
+        non-dominated front (see :func:`pareto_rows` for the ordering and
+        byte-stability contract)."""
+        return pareto_rows(self.query(arch, shape, "ok", mesh))
+
+    def front(self, arch: str, shape: str, k: Optional[int] = 3,
+              mesh: Optional[str] = None) -> List[DataPoint]:
+        """The cell's ``k`` leading designs in Pareto front order: the
+        multi-objective analog of :meth:`winners`, and the promotion
+        ladder's head query under ``--objective pareto``: rank-0 boundary
+        points first, so measured execution covers the front's extremes
+        before its interior. ``k=None`` returns every ranked design."""
+        heads = [d for d, _, _, _ in self.pareto(arch, shape, mesh)]
+        return heads if k is None else heads[:k]
+
     def measured_rows(self, arch: Optional[str] = None,
                       shape: Optional[str] = None,
                       mesh: Optional[str] = None) -> List[DataPoint]:
@@ -310,6 +365,11 @@ class CostDB:
             it = int(d.iteration) if d.iteration is not None else -1
             groups.setdefault(it, []).append(d)
         return sorted(groups.items())
+
+    def count(self, arch: Optional[str] = None, shape: Optional[str] = None,
+              status: Optional[str] = None, mesh: Optional[str] = None) -> int:
+        """How many rows match (every row when no filter is given)."""
+        return len(self.query(arch, shape, status, mesh))
 
     def training_set(self, split: Optional[str] = None, *,
                      arch: Optional[str] = None, shape: Optional[str] = None,

@@ -1,8 +1,8 @@
-"""Pure decision function of the promotion ladder (tier-2 policy).
+"""Pure decision functions of the promotion ladder (tier-2 policy).
 
-Counterpart of ``repro/core/promotion.py``, copied with what the
-kernel-cell path uses: which leaderboard heads earn a measured run, and
-which duplicate measured row is canonical. Pure functions: no clock, no
+Counterpart of ``repro/core/promotion.py``, copied: which leaderboard
+heads (scalar or Pareto) earn a measured run, and which duplicate measured
+row is canonical. Pure functions: no clock, no
 RNG, no I/O.
 """
 from __future__ import annotations
@@ -36,6 +36,20 @@ def plan_promotions(heads: Sequence[DataPoint], measured_keys: Set[str], *,
     if budget_left is not None:
         chosen = chosen[:max(int(budget_left), 0)]
     return chosen
+
+
+def plan_front_promotions(front: Sequence[DataPoint],
+                          measured_keys: Set[str], *, top_k: int,
+                          budget_left: Optional[int] = None,
+                          ) -> List[DataPoint]:
+    """Front-rank promotion plan for ``--objective pareto``: the same
+    dedupe/cap/budget contract as :func:`plan_promotions`, but ``front``
+    comes in deterministic Pareto order (``CostDB.front``: rank, then
+    crowding, boundary points first), so measured execution covers the
+    front's extremes and spread instead of re-measuring the scalar head's
+    neighborhood."""
+    return plan_promotions(front, measured_keys, top_k=top_k,
+                           budget_left=budget_left)
 
 
 def select_measured_row(rows: Iterable[DataPoint]) -> Optional[DataPoint]:

@@ -15,6 +15,11 @@ Example:
         --arch ssd_scan --shape ssd_mamba2_780m_b8_s4096_bf16 \\
         --strategy ensemble --gate-factor 3.0 --measure-top-k 2
 
+``--objective pareto`` ranks the cell's designs by objective-vector
+dominance (``bound_s``, ``vmem_util``, ``flops_util``): the ensemble gains
+its weight-armed members, the measured tier promotes the front in front
+order, and the report carries the front.
+
 ``--device cpu`` runs the kernels' plain versions on the CPU instead; the
 default is ``cuda``, and without a card that is an error.
 """
@@ -25,6 +30,9 @@ from pathlib import Path
 from typing import Dict, Optional, Sequence
 
 from repro_torch.core.kernel_space import KERNEL_NAMES, KERNEL_SHAPES
+from repro_torch.launch.campaign import (OBJECTIVE_CHOICES, build_leaderboard,
+                                         validate_gate_args,
+                                         validate_measure_args)
 from repro_torch.launch.kernel_cell import KERNEL_STRATEGY_CHOICES
 
 
@@ -47,6 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--strategy", default="ensemble",
                     choices=list(KERNEL_STRATEGY_CHOICES),
                     help="search strategy (see repro_torch.search)")
+    ap.add_argument("--objective", default="bound_s",
+                    choices=list(OBJECTIVE_CHOICES),
+                    help="ranking mode: scalar bound_s (default) or "
+                         "multi-objective pareto: the strategy scalarizes "
+                         "along weight arms and tier-2 promotions walk the "
+                         "dominance front instead of the scalar head")
     ap.add_argument("--gate-factor", type=float, default=None,
                     help="enable the surrogate gate: prune candidates whose "
                          "predicted bound is > FACTOR x the incumbent "
@@ -69,36 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def validate_gate_args(gate_factor: Optional[float],
-                       gate_min_factor: Optional[float]) -> Optional[str]:
-    """The surrogate-gate CLI constraints (an error string, or ``None``
-    when valid), as the reference's ``launch/campaign.py`` states them and
-    ``SurrogateGate.__post_init__`` checks them."""
-    if gate_factor is not None and gate_factor <= 1.0:
-        return (f"gate-factor must be > 1 (got {gate_factor}): the gate "
-                "prunes candidates predicted SLOWER than factor x the "
-                "incumbent")
-    if gate_min_factor is not None:
-        if gate_factor is None:
-            return ("gate-min-factor requires gate-factor (annealing "
-                    "tightens the gate's threshold; there is no gate "
-                    "without a factor)")
-        if not (1.0 < gate_min_factor <= gate_factor):
-            return (f"gate-min-factor must be in (1, {gate_factor}], "
-                    f"got {gate_min_factor}")
-    return None
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """CLI entry: run one kernel cell end to end and return its report
     (with the gate's final state under ``"gate"`` when one ran). Exits 2 on
     bad arguments; raises when ``cuda`` is asked for and there is no card."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.measure_top_k < 0:
-        ap.error(f"measure-top-k must be >= 0, got {args.measure_top_k}")
-    if args.measure_runs < 1:
-        ap.error(f"measure-runs must be >= 1, got {args.measure_runs}")
+    measure_err = validate_measure_args(args.measure_top_k, args.measure_runs,
+                                        None)
+    if measure_err:
+        ap.error(measure_err)
     gate_err = validate_gate_args(args.gate_factor, args.gate_min_factor)
     if gate_err:
         ap.error(gate_err)
@@ -116,7 +110,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     from repro_torch.core.device import resolve_device
     from repro_torch.core.eval_cache import DryRunCache
     from repro_torch.core.evaluator import KernelEvaluator
-    from repro_torch.core.promotion import plan_promotions
+    from repro_torch.core.promotion import (plan_front_promotions,
+                                            plan_promotions)
     from repro_torch.launch.kernel_cell import (KERNEL_MESH_NAME,
                                                 _explore_kernel_cell)
     from repro_torch.search import (PromotionLadder, SurrogateGate,
@@ -139,7 +134,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             if args.gate_factor is not None else None)
     report = _explore_kernel_cell(
         arch, args.shape, evaluator=evaluator, db=db, cost_model=cost_model,
-        gate=gate, strategy=make_strategy(args.strategy),
+        gate=gate, strategy=make_strategy(args.strategy,
+                                          objective=args.objective),
         iterations=args.iterations, budget=args.budget, seed=0)
     if cache is not None:
         print(f"evaluation cache: {cache.stats()}")
@@ -154,10 +150,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         measured_keys = {d.point.get("__key__") for d in
                          db.measured_rows(arch, args.shape,
                                           mesh=KERNEL_MESH_NAME)}
-        heads = db.winners(arch, args.shape, k=args.measure_top_k,
-                           mesh=KERNEL_MESH_NAME)
-        for head in plan_promotions(heads, measured_keys,
-                                    top_k=args.measure_top_k):
+        if args.objective == "pareto":
+            front = db.front(arch, args.shape, k=args.measure_top_k,
+                             mesh=KERNEL_MESH_NAME)
+            promos = plan_front_promotions(front, measured_keys,
+                                           top_k=args.measure_top_k)
+        else:
+            heads = db.winners(arch, args.shape, k=args.measure_top_k,
+                               mesh=KERNEL_MESH_NAME)
+            promos = plan_promotions(heads, measured_keys,
+                                     top_k=args.measure_top_k)
+        for head in promos:
             point = PlanPoint(dims={k: v for k, v in head.point.items()
                                     if k != "__key__"})
             dp = evaluator.measure(arch, args.shape, point,
@@ -173,6 +176,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                       f"{dp.reason}")
         print(f"measured tier: {evaluator.measured_count} timed, "
               f"{evaluator.measured_replayed} replayed from cache")
+
+    if args.objective == "pareto":
+        # the cell's rank-0 designs in front order, as the leaderboard
+        # serializes them
+        cell = {"arch": arch, "shape": args.shape, "mesh": KERNEL_MESH_NAME,
+                "status": "complete", "improvement": report["improvement"]}
+        report["front"] = build_leaderboard(db, [cell],
+                                            objective="pareto")[0]["front"]
+        print(f"pareto front: {len(report['front'])} design(s)")
 
     if args.report:
         from repro_torch.launch.ioutil import write_json_atomic

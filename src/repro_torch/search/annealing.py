@@ -15,12 +15,12 @@ from __future__ import annotations
 import math
 import random
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 from repro_torch.core.cost_db import DataPoint
 from repro_torch.core.design_space import PlanPoint
 from repro_torch.search.base import (Candidate, SearchState, bound_of, mutate,
-                                     point_of)
+                                     point_of, weighted_objective)
 
 
 @dataclass
@@ -34,6 +34,12 @@ class SimulatedAnnealing:
     t0: float = 0.5       # initial temperature, in log10-bound decades
     alpha: float = 0.85   # geometric cooling per observe()
     t_min: float = 0.02
+    # Pareto scalarization arm (see base.WEIGHT_ARMS): None keeps the
+    # classic bound_s walker bit-for-bit; a weight dict makes the walker
+    # descend the weighted log-scale objective instead, same Metropolis
+    # rule (weighted scores are already in decades, so deltas subtract
+    # directly where the scalar path takes log10 of raw bounds).
+    weights: Optional[Dict[str, float]] = None
 
     _temp: float = field(init=False)
     _current: Optional[Tuple[PlanPoint, float]] = field(default=None, init=False)
@@ -57,7 +63,7 @@ class SimulatedAnnealing:
         cold walkers exactly 1. Falls back to random template samples when
         the cell has no incumbent yet. Deterministic per iteration."""
         if self._current is None:
-            inc_b = bound_of(state.incumbent)
+            inc_b = self._score(state.incumbent)
             if state.incumbent is not None and inc_b is not None:
                 self._current = (point_of(state.incumbent), inc_b)
         base = (self._current[0] if self._current is not None
@@ -77,6 +83,14 @@ class SimulatedAnnealing:
             out.append(Candidate(p, f"search:{self.name}"))
         return out
 
+    def _score(self, dp: Optional[DataPoint]) -> Optional[float]:
+        """The walker's objective for a row: raw ``bound_s`` seconds in
+        scalar mode (acceptance takes log10 at delta time), or the weighted
+        log-scale objective when a Pareto weight arm is set."""
+        if not self.weights:
+            return bound_of(dp)
+        return weighted_objective(dp, self.weights)
+
     def observe(self, datapoints: Sequence[DataPoint]) -> None:
         """Metropolis step on the fastest own-proposed feasible result — a
         better design always moves the walker, a worse one moves it with
@@ -85,7 +99,7 @@ class SimulatedAnnealing:
         mine = [d for d in datapoints
                 if d.point.get("__key__") in self._proposed
                 and d.status == "ok" and d.metrics.get("bound_s")]
-        if mine:
+        if mine and not self.weights:
             cand = min(mine, key=lambda d: d.metrics["bound_s"])
             b = cand.metrics["bound_s"]
             if self._current is None:
@@ -94,4 +108,17 @@ class SimulatedAnnealing:
                 delta = math.log10(b) - math.log10(self._current[1])
                 if delta <= 0 or self._rng.random() < math.exp(-delta / max(self._temp, 1e-9)):
                     self._current = (point_of(cand), b)
+        elif mine:
+            scored = [(s, d) for d in mine
+                      if (s := self._score(d)) is not None]
+            if scored:
+                s, cand = min(scored, key=lambda t: t[0])
+                if self._current is None:
+                    self._current = (point_of(cand), s)
+                else:
+                    # weighted scores are already log-scale decades
+                    delta = s - self._current[1]
+                    if delta <= 0 or self._rng.random() < math.exp(
+                            -delta / max(self._temp, 1e-9)):
+                        self._current = (point_of(cand), s)
         self._temp = max(self._temp * self.alpha, self.t_min)

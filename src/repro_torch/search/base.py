@@ -24,6 +24,23 @@ from repro_torch.core.cost_db import (MAXIMIZE_OBJECTIVES, CostDB, DataPoint,
 from repro_torch.core.design_space import KernelTemplate, PlanPoint
 
 
+# Named scalarization-weight vectors for Pareto search: each arm turns the
+# objective vector into one weighted log-scale score, so the single-score
+# walkers (anneal, evolve) can sweep different regions of the front
+# without a new acceptance rule. Keys index into a row's ``objectives``
+# dict; keys a row lacks (plan vs kernel vectors differ) are skipped and
+# the weights renormalized, so one arm table serves both design spaces.
+# Under ``--objective pareto`` the Ensemble runs these as extra bandit
+# members (``anneal@memory`` etc.), and the arm name lands in DB
+# provenance via the member name.
+WEIGHT_ARMS: Dict[str, Dict[str, float]] = {
+    "latency": {"bound_s": 1.0},
+    "memory": {"bound_s": 1.0, "hbm_bytes": 1.0, "vmem_bytes": 1.0,
+               "vmem_util": 1.0},
+    "balanced": {"bound_s": 1.0, "hbm_bytes": 0.5, "vmem_bytes": 0.5,
+                 "vmem_util": 0.5, "flops_util": 0.5},
+}
+
 def weighted_objective(dp: Optional[DataPoint],
                        weights: Optional[Dict[str, float]],
                        ) -> Optional[float]:

@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from repro_torch.core.cost_db import DataPoint
 from repro_torch.core.design_space import PlanPoint
 from repro_torch.search.base import (Candidate, SearchState, mutate, point_of,
-                                     repair)
+                                     repair, weighted_objective)
 
 
 @dataclass
@@ -34,6 +34,12 @@ class Evolutionary:
     pop_size: int = 8
     tournament: int = 2
     p_mutate: float = 0.3
+    # Pareto scalarization arm (see base.WEIGHT_ARMS): None keeps bound_s
+    # fitness bit-for-bit; a weight dict breeds toward the weighted
+    # log-scale objective instead (scores can be negative: log10 of
+    # sub-second bounds, so weighted mode tests ``is not None``, never
+    # truthiness).
+    weights: Optional[Dict[str, float]] = None
 
     # key -> (fitness, point); fittest = lowest score
     _pop: Dict[str, Tuple[float, PlanPoint]] = field(default_factory=dict,
@@ -46,9 +52,12 @@ class Evolutionary:
         return sorted(self._pop.values(), key=lambda t: t[0])[: self.pop_size]
 
     def _fitness(self, d: DataPoint) -> Optional[float]:
-        """Fitness score (lower is fitter): the row's ``bound_s`` seconds."""
-        b = d.metrics.get("bound_s")
-        return b if b else None
+        """Fitness score (lower is fitter): raw ``bound_s`` in scalar mode,
+        the weighted log-scale objective under a Pareto weight arm."""
+        if not self.weights:
+            b = d.metrics.get("bound_s")
+            return b if b else None
+        return weighted_objective(d, self.weights)
 
     def _seed_population(self, state: SearchState) -> None:
         for d in state.db.query(state.arch, state.shape, "ok"):

@@ -7,10 +7,11 @@ on both of its routes
 with ``sq != sk``, ``q_offset``, odd K-tile walks and short query blocks at
 d = 64, 96 and 128, every
 rmsnorm path at an odd row count and every ``block_rows``, the oracle
-gate, launch counting, refused launches, and one DSE cell with measured
-rows on cuda. The kernels have no
-CPU mode, so these tests skip where torch sees no card; on a machine with
-an H100 and nvcc run them from the repo root with
+gate, launch counting, refused launches, one DSE cell with measured
+rows on cuda, and a two-cell kernel campaign that resumes with no
+launch. The kernels have no CPU mode, so these tests skip where torch
+sees no card; on a machine with an H100 and nvcc run them from the repo
+root with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 shared conftest imports jax, which that machine need not have; this file
 imports none of it)."""
@@ -25,7 +26,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
-from repro_torch.launch import dse
+from repro_torch.launch import campaign, dse
 
 SHAPES = list(CI_KERNEL_SHAPES) + [
     KernelShape("rms_odd_173x96_f32", "rmsnorm", {"rows": 173, "d": 96}, "float32"),
@@ -81,6 +82,26 @@ def test_dse_cell_measures_on_cuda(card, tmp_path):
     measured = [d for d in CostDB(db).all() if d.fidelity == "measured"]
     assert measured and all(d.status == "ok" and d.metrics["backend"] == "cuda"
                             for d in measured)
+
+
+@pytest.mark.cuda
+def test_kernel_campaign_runs_and_resumes_on_cuda(card, tmp_path):
+    argv = ["--archs", "vecmul,rmsnorm", "--shapes", "vec_64k_f32,rms_1kx256_bf16",
+            "--iterations", "2", "--budget", "3", "--measure-top-k", "1",
+            "--out", str(tmp_path)]
+    ops.reset_launch_counts()
+    first = campaign.main(argv)
+    counts = ops.launch_counts()
+    assert counts["vecmul"] > 0 and counts["rmsnorm"] > 0
+    assert (first["ran"], first["measured"]) == (2, 2)
+    rows = CostDB(tmp_path / "cost_db.jsonl").all()
+    assert not [d.reason for d in rows if d.status == "error"]
+    measured = [d for d in rows if d.fidelity == "measured"]
+    assert measured and all(d.metrics["backend"] == "cuda" for d in measured)
+    ops.reset_launch_counts()
+    again = campaign.main(argv)
+    assert (again["ran"], again["resumed"], again["evaluations"]) == (0, 2, 0)
+    assert sum(ops.launch_counts().values()) == 0
 
 
 @pytest.mark.cuda

@@ -30,7 +30,9 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for name in ("repro_torch.launch.dse", "repro_torch.kernels._build",
-                 "repro_torch.core.evaluator", "repro_torch.search.greedy"):
+                 "repro_torch.core.evaluator", "repro_torch.search.greedy",
+                 "repro_torch.launch.campaign", "repro_torch.launch.scheduler",
+                 "repro_torch.launch.merge_db", "repro_torch.core.pareto"):
         assert name in out["modules"]
 
 

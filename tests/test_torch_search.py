@@ -321,15 +321,29 @@ def test_gate_args_are_validated_as_the_reference_does(factor, min_factor, tmp_p
 
 
 def test_unported_objective_and_strategy_are_refused(tmp_path):
-    # every strategy minimizes bound_s; the CLI has no --objective to ask for pareto
+    # --objective pareto is ported: the CLI runs it and reports the front
+    rep = dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
+                    "--iterations", "1", "--db", str(tmp_path / "db.jsonl"),
+                    "--objective", "pareto"])
+    assert rep["front"] and all(set(f) == {"point", "objectives", "crowding"}
+                                for f in rep["front"])
+    assert "objective" in inspect.signature(search.make_strategy).parameters
     with pytest.raises(SystemExit):
         dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
-                  "--db", str(tmp_path / "db.jsonl"), "--objective", "pareto"])
-    assert "objective" not in inspect.signature(search.make_strategy).parameters
-    with pytest.raises(ValueError, match="unknown strategy"):
-        search.make_strategy("llm")
+                  "--db", str(tmp_path / "db.jsonl"), "--objective", "hypervolume"])
+    with pytest.raises(ValueError, match="unknown objective"):
+        search.make_strategy("ensemble", objective="hypervolume")
+    # the plan-coupled strategies are not ported
+    for name in ("llm", "transfer", "ensemble+transfer"):
+        with pytest.raises(ValueError, match="unknown strategy"):
+            search.make_strategy(name)
+        with pytest.raises(SystemExit):
+            dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
+                      "--db", str(tmp_path / "db.jsonl"), "--strategy", name])
     assert [m.name for m in search.make_strategy("ensemble").members] == \
         ["greedy", "anneal", "evolve"]
+    assert [m.name for m in search.make_strategy("ensemble", objective="pareto").members] \
+        == [m.name for m in jsearch.make_strategy("ensemble", objective="pareto").members]
 
 
 def test_cli_gated_ensemble_writes_pruned_rows(tmp_path, monkeypatch, capsys):
