@@ -60,8 +60,22 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    ``block_rows``, the SSD scan's at every chunk with its route, each
    launch's time from the profiler, registers and the resource model's
    estimate, the SSD scan's FMA route where the main path ran it, and the
-   SSD scan at zamba2-2.7b's widths (80 heads, d_state 64) on ``wgmma``,
-   held against its plain version and timed.
+   SSD scan at zamba2-2.7b's widths (80 heads of 64, d_state 64) on ``wgmma``,
+   held against its plain version and timed;
+5. plan cells, llama3-8b at full width (launch counts set to 0 before and
+   read after: the plan path runs torch math and launches no kernel of
+   the port): the dry run (``repro_torch.launch.dryrun``) of
+   ``prefill_32k`` and ``decode_32k`` on the fake 16x16 mesh, each in a
+   subprocess of its own, must write ``ok`` records with every reference
+   key (bound, dominant term, GiB per device and ``fits_hbm`` printed);
+   then the measured tier (``launch.measure.measure_cell``) times both
+   cells on the card with the global batch cut to fit one card (prefill 32
+   -> 1, decode 128 -> 8; the only cuts, listed as ``reduced``), beside
+   the 1x1 dry run's bound for the same cut cell; then the model with 2
+   layers at full width, a 2048-token prefill and 8 decode steps, in bf16
+   on the card against f32 on the CPU on the same weights, within
+   ``launch.measure.MODEL_REL`` of the largest |logit| at every step
+   (``launch.measure.check_against_cpu``).
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
@@ -84,6 +98,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "artifacts" / "chip_smoke"
+
+#: the keys of the reference's dry-run record (``repro/launch/dryrun.py``)
+DRYRUN_KEYS = {
+    "": ("arch", "shape", "mesh", "n_devices", "plan", "status", "lower_s", "compile_s",
+         "memory", "xla_flops_once", "hlo", "model_flops", "model_flops_per_dev",
+         "useful_flops_ratio", "roofline", "wall_s"),
+    "memory": ("argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+               "code_bytes", "per_device_bytes", "fits_hbm"),
+    "hlo": ("dot_flops", "conv_flops", "hbm_bytes", "collect_bytes", "wire_bytes",
+            "collective_bytes_total", "wire_bytes_total", "flops"),
+    "roofline": ("compute_s", "memory_s", "collective_s", "dominant", "bound_s"),
+}
 
 
 def fail(msg: str) -> None:
@@ -181,6 +207,96 @@ def kernel_space_route(shape, dims) -> str:
     from repro_torch.core.kernel_space import kernel_resources
 
     return kernel_resources(shape, dims).route or {"vecmul": "elementwise"}[shape.kernel]
+
+
+def plan_cells(card: str) -> None:
+    """Phase 5 (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.campaign import make_campaign_mesh
+    from repro_torch.launch.measure import check_against_cpu, measure_cell
+
+    ops.reset_launch_counts()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = OUT / "dryrun"
+    shapes = ("prefill_32k", "decode_32k")
+    t = time.perf_counter()
+    procs = {sh: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama3-8b",
+         "--shape", sh, "--mesh", "pod", "--force", "--out", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env) for sh in shapes}
+    for sh, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"dry run llama3-8b {sh} pod16x16 exited {proc.returncode}: "
+                 f"{stdout[-1000:]} {stderr[-2000:]}")
+    print(f"plan dry runs: {time.perf_counter() - t:.1f} s for both cells, in parallel",
+          flush=True)
+    for sh in shapes:
+        rec = json.loads((out / f"llama3-8b__{sh}__pod16x16.json").read_text())
+        for part, keys in DRYRUN_KEYS.items():
+            have = rec[part] if part else rec
+            missing = [k for k in keys if k not in have]
+            if rec["status"] != "ok" or missing:
+                fail(f"dry run llama3-8b {sh}: status {rec['status']}, missing {part} "
+                     f"keys {missing}: {rec.get('error')}")
+        r, m, h = rec["roofline"], rec["memory"], rec["hlo"]
+        print(f"plan dry run llama3-8b {sh} pod16x16 (256 fake cards, baseline plan): bound "
+              f"{r['bound_s'] * 1e3:.2f} ms ({r['dominant']}; compute {r['compute_s'] * 1e3:.2f}, "
+              f"memory {r['memory_s'] * 1e3:.2f}, collective {r['collective_s'] * 1e3:.2f} ms), "
+              f"{m['per_device_bytes'] / 2**30:.3f} GiB per device, fits_hbm {m['fits_hbm']}, "
+              f"{h['flops']:.4g} FLOP and {h['wire_bytes_total']:.4g} wire bytes per device "
+              f"{ {k: f'{v:.4g}' for k, v in h['wire_bytes'].items()} }, traced in "
+              f"{rec['lower_s']} s", flush=True)
+
+    # the measured tier on the card, beside the 1x1 dry run of the same cut cell
+    cfg = get_config("llama3-8b")
+    dmesh, _ = make_campaign_mesh("tiny", "cpu")
+    mesh, name = make_campaign_mesh("tiny", "cuda")
+    cuts = {"prefill_32k": 1, "decode_32k": 8}
+    for sh in shapes:
+        full = SHAPE_BY_NAME[sh]
+        cell = dataclasses.replace(full, global_batch=cuts[sh])
+        d = dryrun.run_cell("llama3-8b", sh, dmesh, name, cfg=cfg, cell=cell,
+                            artifact_dir=OUT / "dryrun1x1")
+        if d["status"] != "ok":
+            fail(f"1x1 dry run llama3-8b {sh}: {d.get('error')}")
+        rec = measure_cell("llama3-8b", sh, mesh, name, cfg=cfg, cell=cell, runs=3)
+        if rec["status"] != "ok" or rec["backend"] != "cuda":
+            fail(f"measured tier llama3-8b {sh}: {rec.get('error')} {rec.get('trace')}")
+        bound = d["roofline"]["bound_s"]
+        line = {"arch": "llama3-8b", "shape": sh, "mesh": name,
+                "reduced": {"global_batch": [full.global_batch, cell.global_batch]},
+                "measured_s": rec["measured_s"], "times_s": rec["times_s"],
+                "warm_s": rec["warm_s"], "peak_bytes": rec["peak_bytes"],
+                "dryrun_bound_s": bound, "dryrun_dominant": d["roofline"]["dominant"],
+                "dryrun_flops": d["hlo"]["flops"], "dryrun_hbm_bytes": d["hlo"]["hbm_bytes"],
+                "dryrun_per_device_bytes": d["memory"]["per_device_bytes"],
+                "share_of_bound": bound / rec["measured_s"], "card": card}
+        print("plan cell " + json.dumps(line), flush=True)
+        torch.cuda.empty_cache()
+
+    # the model on the card in bf16 against the CPU in f32, same weights
+    t = time.perf_counter()
+    chk = check_against_cpu("llama3-8b", n_layers=2, tokens=2048, steps=8, device="cuda")
+    errs = chk["logits"]
+    if not chk["ok"] or chk["len"] != ([2048 + 8], [2048 + 8]):
+        fail(f"llama3-8b 2 layers bf16 on the card vs f32 on the CPU: logits {errs}, "
+             f"cache {chk['cache']}, finite {chk['finite']}, lengths {chk['len']}, "
+             f"limit {chk['limit']}")
+    print(f"plan model check: llama3-8b at full width, 2 layers, 2048-token prefill and 8 "
+          f"decode steps, bf16 on the card vs f32 on the CPU, same weights: max|err| / "
+          f"max|logit| {max(errs):.4g} (prefill {errs[0]:.4g}), cache {chk['cache']:.4g}, "
+          f"limit {chk['limit']} ({time.perf_counter() - t:.1f} s)", flush=True)
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    if launched:
+        fail(f"the plan path launched kernels of the port: {launched}")
+    print("plan path: 0 kernel launches", flush=True)
 
 
 def main() -> None:
@@ -783,6 +899,9 @@ def main() -> None:
               f"modelled {res.est_latency_us / 1e3:.4f} ms, row check err/limit "
               f"{agree['ratio']:.3g} [{card}]", flush=True)
     del inputs
+
+    # ---- phase 5: plan cells ----
+    plan_cells(card)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(card, flush=True)

@@ -1,0 +1,10 @@
+"""mixtral-8x7b [moe] — 8 experts top-2, sliding-window attention.
+[arXiv:2401.04088; hf]"""
+from repro_torch.configs.base import ArchConfig, MoESpec
+
+CONFIG = ArchConfig(
+    name="mixtral-8x7b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=14336, vocab=32000, d_head=128, swa_window=4096, rope_theta=1_000_000.0,
+    moe=MoESpec(n_experts=8, top_k=2, d_ff_expert=14336),
+)

@@ -1,0 +1,11 @@
+"""seamless-m4t-medium [audio] — encoder-decoder backbone; audio frontend is
+a stub (precomputed frame embeddings). [arXiv:2308.11596; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="seamless-m4t-medium", family="audio",
+    n_layers=12, d_model=1024, n_heads=16, n_kv_heads=16,
+    d_ff=4096, vocab=256206,
+    enc_dec=True, n_enc_layers=12,
+    frontend="frames", frontend_len=1024,
+)

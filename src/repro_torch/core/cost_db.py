@@ -1,9 +1,9 @@
 """Cost-model database: the append-only store of hardware data points.
 
 Counterpart of ``repro/core/cost_db.py``, copied with what the kernel
-space uses: the scalar and the Pareto rankings, the promotion ladder's
-queries and the surrogate's training set (the plan-cell workload features
-wait for their slice). Rows are the same JSON lines, byte for byte: a row
+space uses, the plan cells' workload features and the cell queries:
+the scalar and the Pareto rankings, the promotion ladder's queries and the
+surrogate's training set. Rows are the same JSON lines, byte for byte: a row
 written here reads back in the reference's ``CostDB`` and serializes the
 same way. The DB feeds the surrogate cost model's training set and the
 promotion ladder's heads.
@@ -99,6 +99,20 @@ def featurize(point: Dict[str, Any], workload: Dict[str, float]) -> np.ndarray:
               "vocab", "n_experts", "is_train", "is_decode"):
         feats.append(math.log10(1 + float(workload.get(k, 0.0))))
     return np.asarray(feats, np.float32)
+
+
+def workload_features(cfg, cell) -> Dict[str, float]:
+    return {
+        "n_params": cfg.n_params(),
+        "seq_len": cell.seq_len,
+        "global_batch": cell.global_batch,
+        "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model,
+        "vocab": cfg.vocab,
+        "n_experts": cfg.moe.n_experts if cfg.moe else 0,
+        "is_train": 1.0 if cell.kind == "train" else 0.0,
+        "is_decode": 1.0 if cell.kind == "decode" else 0.0,
+    }
 
 
 #: objectives where larger is better (every other objective is minimized)
@@ -301,6 +315,14 @@ class CostDB:
         if include_pruned:
             return set(cell)
         return {k for k, st in cell.items() if st != "pruned"}
+
+    def seen(self, arch: str, shape: str, point_key: str) -> bool:
+        return point_key in self.keys(arch, shape)
+
+    def cells(self) -> List[Tuple[str, str, str]]:
+        """Distinct (arch, shape, mesh) cells present — the campaign engine's
+        view of which workloads already hold data."""
+        return sorted({(d.arch, d.shape, d.mesh) for d in self.all()})
 
     def winners(self, arch: str, shape: str, k: int = 3,
                 mesh: Optional[str] = None) -> List[DataPoint]:

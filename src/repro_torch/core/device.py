@@ -7,6 +7,16 @@ FLOPs and bytes into the three roofline times.
 ``H100_SXM`` cites NVIDIA's H100 Tensor Core GPU data sheet (SXM5 part,
 dense rates without sparsity, at the 700 W power limit) and the Hopper
 architecture white paper for the per-SM limits.
+
+``H100_CLUSTER`` is the same card in a DGX H100 style cluster, the plan
+cells' target: 8 cards per node joined by NVLink 4 through NVSwitch, 450
+GB/s per direction per card (the H100 data sheet's 900 GB/s is both
+directions), and one 400 Gb/s ConnectX-7 NIC per card between nodes, 50
+GB/s per direction (the DGX H100 system's eight single-port OSFP
+compute-fabric links, one per card). ``roofline_terms`` charges each collective by its
+group: one that stays inside a node goes at the NVLink rate, one that
+crosses nodes at the NIC rate. (The reference charges every collective at
+one ICI link rate, ``repro/core/device.py``.)
 """
 from __future__ import annotations
 
@@ -32,6 +42,14 @@ class DeviceModel:
     max_threads_per_sm: int = 2048
     max_blocks_per_sm: int = 32
     regs_per_sm: int = 65_536  # 32-bit registers an SM divides among its blocks
+    cards_per_node: int = 1  # cards one NVLink domain joins
+    nic_bw: float = 0.0  # B/s per direction per card between nodes
+
+    def link_class(self, ranks) -> str:
+        """``"nvlink"`` for a group of ranks that lies inside one node,
+        ``"nic"`` for one that crosses nodes (ranks fill nodes in order)."""
+        nodes = {r // self.cards_per_node for r in ranks}
+        return "nvlink" if len(nodes) <= 1 else "nic"
 
 
 H100_SXM = DeviceModel(
@@ -48,6 +66,12 @@ H100_SXM = DeviceModel(
     l2_bytes=50 * 2**20,
     clock_hz=1.98e9,  # max boost clock of the SXM5 part
 )
+
+
+#: the plan cells' target: H100 SXM cards, 8 per node on NVLink 4, one
+#: 400 Gb/s NIC per card between nodes (see the module docstring)
+H100_CLUSTER = dataclasses.replace(H100_SXM, name="h100-sxm-dgx-cluster",
+                                   cards_per_node=8, nic_bw=400e9 / 8)
 
 
 def peak_flops(device: DeviceModel, dtype: str) -> float:
@@ -79,13 +103,19 @@ class RooflineTerms:
 
 def roofline_terms(*, flops: float, hbm_bytes: float, wire_bytes: float,
                    device: DeviceModel = H100_SXM,
-                   dtype: str = "bfloat16") -> RooflineTerms:
+                   dtype: str = "bfloat16",
+                   nic_wire_bytes: float = 0.0) -> RooflineTerms:
     """All inputs are per-device totals for one step; ``dtype`` picks the
-    peak rate the FLOPs run at."""
+    peak rate the FLOPs run at. ``wire_bytes`` go at the NVLink rate and
+    ``nic_wire_bytes`` (collectives whose group crosses nodes) at the NIC
+    rate."""
+    collective_s = wire_bytes / device.link_bw
+    if nic_wire_bytes:
+        collective_s += nic_wire_bytes / device.nic_bw
     return RooflineTerms(
         compute_s=flops / peak_flops(device, dtype),
         memory_s=hbm_bytes / device.hbm_bw,
-        collective_s=wire_bytes / device.link_bw,
+        collective_s=collective_s,
     )
 
 

@@ -1,7 +1,8 @@
 """Kernel campaigns: tune many kernel cells into one cost DB.
 
 Counterpart of the ``--space kernels`` half of ``repro/launch/campaign.py``
-(the plan grid, its meshes and ``run_campaign`` wait for the plan space).
+and the campaign meshes (the plan grid and ``run_campaign`` wait for the
+plan loop).
 The helpers here are copied from the reference and shared by
 ``launch/kernel_cell.py`` (which runs the campaign), ``launch/dse.py`` and
 ``launch/merge_db.py``: the per-cell report path, the leaderboard, the CLI
@@ -56,7 +57,8 @@ from repro_torch.launch.ioutil import write_json_atomic
 
 __all__ = [
     "OBJECTIVE_CHOICES", "build_leaderboard", "build_parser",
-    "cell_report_path", "main", "parse_shard", "read_progress",
+    "cell_report_path", "main", "make_campaign_mesh", "parse_shard",
+    "read_progress",
     "validate_gate_args", "validate_measure_args", "validate_objective_args",
     "write_progress",
 ]
@@ -65,6 +67,21 @@ PROGRESS_FILE = "progress.json"
 #: leaderboard ranking modes: the scalar bound, or the dominance-ranked
 #: multi-objective front
 OBJECTIVE_CHOICES = ("bound_s", "pareto")
+
+
+def make_campaign_mesh(name: str, device: str = "cuda"):
+    """The mesh for a ``--mesh`` choice; returns ``(mesh, mesh_name)``.
+    ``tiny`` (1x1, on ``device``) is the measured tier's; the others live
+    on a fake process group (``launch/mesh.py``)."""
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh
+
+    if name == "pod":
+        return make_production_mesh(), "pod16x16"
+    if name == "multipod":
+        return make_production_mesh(multi_pod=True), "multipod2x16x16"
+    if name == "tiny":
+        return make_mesh((1, 1), ("data", "model"), device), "tiny1x1"
+    return make_mesh((2, 4), ("data", "model")), "small2x4"
 
 
 def cell_report_path(out_dir: Path, arch: str, shape: str, mesh_name: str) -> Path:

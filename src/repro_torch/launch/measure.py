@@ -1,25 +1,41 @@
-"""Tier-2 measured execution for kernel cells: launch the kernel and time it.
+"""Tier-2 measured execution: run a plan cell's step, or launch a kernel,
+and time it.
 
-Counterpart of ``repro/launch/measure.py::measure_kernel_cell``. One warm
-call (the first launch builds and loads the kernel library), then ``runs``
-timed calls; the record reports the **minimum**. On a card each timed call
-sits between two ``torch.cuda.Event`` records after a ``synchronize()``,
-so the time is the device's, never the host's enqueue time. With
-``device="cpu"`` the plain versions run and the host clock times them; the
-record's ``backend`` says which.
+Counterpart of ``repro/launch/measure.py``. One warm call (the first
+launch builds and loads the kernel library; a plan step's first call
+allocates its working set), then ``runs`` timed calls; the record reports
+the **minimum**. On a card each timed call sits between two
+``torch.cuda.Event`` records after a ``synchronize()``, so the time is the
+device's, never the host's enqueue time. With ``device="cpu"`` the host
+clock times the calls; the record's ``backend`` says which.
 
-``measure_kernel_cell`` never raises: a failed launch is a
+``measure_cell`` builds the same step as ``launch/dryrun.build_cell`` on a
+one-device mesh (``tiny1x1``), with every input (parameters, batch, cache)
+as zeros on the mesh's device: the time of a dense step does not depend on
+the data. A cell too large for one card is measured with a cut global
+batch (``cell=``; the CLI's ``--batch``). Neither function raises: a failed run is a
 ``status="error"`` record.
+
+    PYTHONPATH=src python -m repro_torch.launch.measure --arch llama3-8b \
+        --shape decode_32k --batch 8 --device cuda
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import sys
 import time
 import traceback
+from pathlib import Path
 from typing import Any, Dict
 
 import torch
 
 DEFAULT_RUNS = 3
+
+# process-local count of actual timed executions of plan cells
+N_MEASUREMENTS = 0
 
 
 def _time_call(fn, device: torch.device) -> float:
@@ -36,6 +52,132 @@ def _time_call(fn, device: torch.device) -> float:
     t = time.perf_counter()
     fn()
     return time.perf_counter() - t
+
+
+def zero_step(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=None):
+    """``(call, None)``: ``call()`` runs one step of the cell, built as
+    ``dryrun.build_cell`` builds it on the one-device ``mesh``, on inputs
+    that are zeros on the mesh's device; or ``(None, reason)`` for a cell
+    the port does not run."""
+    from repro_torch.launch import dryrun
+
+    if mesh.size() != 1:
+        raise ValueError(f"the measured tier runs on one device, not {mesh.size()}")
+    dev = torch.device(mesh.device_type)
+    built, skip = dryrun.build_cell(arch, shape_name, mesh, plan, cfg=cfg, cell=cell)
+    if built is None:
+        return None, skip
+    step, inputs, _ = built
+    args = {g: {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
+                for k, v in leaves.items()} for g, leaves in inputs.items()}
+    del inputs
+
+    def call():
+        with torch.no_grad():
+            step(args["params"], args["batch"], args["cache"])
+
+    return call, None
+
+
+def measure_cell(arch: str, shape_name: str, mesh, mesh_name: str,
+                 plan=None, *, runs: int = DEFAULT_RUNS,
+                 cfg=None, cell=None) -> Dict[str, Any]:
+    """Run one cell's step on a one-device mesh and time it (see the module
+    docstring).
+
+    Returns a record with ``status`` ``ok`` (``measured_s`` = min over
+    ``runs`` timed calls, ``times_s`` the full list, ``warm_s`` the first
+    call, ``backend`` the mesh's device type, ``peak_bytes`` the card's
+    peak allocation over the warm and timed calls, ``None`` on the CPU),
+    ``skipped`` (unsupported cell), or ``error``.
+    """
+    global N_MEASUREMENTS
+    if runs < 1:
+        raise ValueError(f"runs must be >= 1, got {runs}")
+    t0 = time.time()
+    rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
+                           "mesh": mesh_name, "fidelity": "measured",
+                           "n": runs, "measured_at": round(t0, 3)}
+    try:
+        dev = torch.device(mesh.device_type)
+        call, skip = zero_step(arch, shape_name, mesh, plan, cfg=cfg, cell=cell)
+        if call is None:
+            rec.update(status="skipped", reason=skip)
+            return rec
+
+        N_MEASUREMENTS += 1
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t_warm = time.perf_counter()
+        call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        warm_s = time.perf_counter() - t_warm
+        times = [_time_call(call, dev) for _ in range(runs)]
+        rec.update(status="ok",
+                   measured_s=min(times),
+                   times_s=times,
+                   warm_s=warm_s,
+                   backend=dev.type,
+                   device_name=(torch.cuda.get_device_name(dev)
+                                if dev.type == "cuda" else "cpu"),
+                   peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else None))
+    except Exception as e:  # noqa: BLE001 — a failed measurement is a negative datapoint
+        rec.update(status="error", error=f"{type(e).__name__}: {e}",
+                   trace=traceback.format_exc()[-2000:])
+    rec["wall_s"] = round(time.time() - t0, 2)
+    return rec
+
+
+#: bf16 on the card against f32 on the CPU (``check_against_cpu``), as a
+#: share of the largest |value| of the f32 result. bf16 alone departs from
+#: f32 by about this much at the check's size: ``scripts/bf16_gap.py``
+#: gives the reference's own gap and the port's.
+MODEL_REL = 2e-2
+
+
+def check_against_cpu(arch: str = "llama3-8b", *, n_layers: int = 2, tokens: int = 2048,
+                      steps: int = 8, device: str = "cuda", seed: int = 0) -> Dict[str, Any]:
+    """The dense model at full width, cut to ``n_layers``, with random
+    weights from ``seed``: a ``tokens``-token prefill and ``steps`` decode
+    steps in the config's dtype on ``device`` and in f32 on the CPU, on the
+    same weights. Returns each step's max |logit error| / max |logit|
+    (``logits``: the prefill's first), the cache's (``cache``), whether the
+    device's logits were finite, both caches' lengths, and ``ok``: every
+    error finite and below ``MODEL_REL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params, _ = M.init_params(cfg, seed=seed, device=device)
+    cpu = {k: v.float().cpu() for k, v in params.items()}
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab, (1, tokens + steps), generator=gen, dtype=torch.int32)
+
+    def rel(want, got):
+        want, got = want.float().cpu(), got.float().cpu()
+        return float((want - got).abs().max() / want.abs().max())
+
+    errs, finite = [], True
+    with torch.no_grad():
+        dl, dc = M.prefill_fn(cfg, params, {"tokens": tok[:, :tokens].to(device)},
+                              M.init_cache(cfg, 1, tokens + steps, device=device))
+        cl, cc = M.prefill_fn(cfg32, cpu, {"tokens": tok[:, :tokens]},
+                              M.init_cache(cfg32, 1, tokens + steps))
+        errs.append(rel(cl, dl))
+        finite = finite and bool(torch.isfinite(dl.float()).all())
+        for i in range(steps):
+            nxt = tok[:, tokens + i:tokens + i + 1]
+            dl, dc = M.decode_fn(cfg, params, {"tokens": nxt.to(device)}, dc)
+            cl, cc = M.decode_fn(cfg32, cpu, {"tokens": nxt}, cc)
+            errs.append(rel(cl, dl))
+            finite = finite and bool(torch.isfinite(dl.float()).all())
+    cache = max(rel(cc[k], dc[k]) for k in ("k", "v"))
+    ok = finite and all(e < MODEL_REL for e in errs + [cache])
+    return {"logits": errs, "cache": cache, "finite": finite, "ok": ok,
+            "len": (dc["len"].tolist(), cc["len"].tolist()), "limit": MODEL_REL}
 
 
 def measure_kernel_cell(kshape, dims: Dict[str, Any], *,
@@ -94,3 +236,66 @@ def measure_kernel_cell(kshape, dims: Dict[str, Any], *,
                    trace=traceback.format_exc()[-2000:])
     rec["wall_s"] = round(time.time() - t0, 2)
     return rec
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The measured-execution CLI surface."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.measure",
+        description="measure one cell: run its step on one device and time "
+                    "it (tier 2 of the promotion ladder)")
+    ap.add_argument("--arch", required=True, help="arch id")
+    ap.add_argument("--shape", required=True, help="shape cell name")
+    ap.add_argument("--mesh", default="tiny", choices=["tiny"],
+                    help="the one-device mesh (a larger mesh has no devices to run on)")
+    ap.add_argument("--runs", type=int, default=DEFAULT_RUNS,
+                    help="timed executions after the warm call; the "
+                         "reported measured_s is their minimum")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="run on the card (default) or, when asked, the CPU")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="cut the cell's global batch to this many sequences: "
+                         "no serve cell fits one card at its own batch (the "
+                         "record lists the cut under 'reduced')")
+    ap.add_argument("--out", default=None,
+                    help="write the measurement record JSON here")
+    return ap
+
+
+def main(argv=None) -> None:
+    """CLI entry: measure one (arch, shape) cell's baseline plan on the
+    one-device mesh and print the record. Exits 1 on a failed measurement."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.runs < 1:
+        ap.error(f"--runs must be >= 1, got {args.runs}")
+    from repro_torch.configs import ARCH_NAMES, SHAPE_BY_NAME
+    from repro_torch.core.device import resolve_device
+    from repro_torch.launch.campaign import make_campaign_mesh
+
+    if args.arch not in ARCH_NAMES:
+        ap.error(f"unknown arch {args.arch!r}")
+    if args.shape not in SHAPE_BY_NAME:
+        ap.error(f"unknown shape {args.shape!r}")
+    if args.batch is not None and args.batch < 1:
+        ap.error(f"--batch must be >= 1, got {args.batch}")
+    resolve_device(args.device)
+    mesh, mesh_name = make_campaign_mesh(args.mesh, args.device)
+    cell = SHAPE_BY_NAME[args.shape]
+    cut = dataclasses.replace(cell, global_batch=args.batch) if args.batch else cell
+    rec = measure_cell(args.arch, args.shape, mesh, mesh_name, runs=args.runs, cell=cut)
+    if cut is not cell:
+        rec["reduced"] = {"global_batch": [cell.global_batch, cut.global_batch]}
+    print(json.dumps({k: v for k, v in rec.items() if k != "trace"},
+                     indent=1, default=str))
+    if args.out:
+        from repro_torch.launch.ioutil import write_json_atomic
+
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        write_json_atomic(Path(args.out), rec)
+    if rec["status"] == "error":
+        sys.exit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,10 @@ d = 64, 96 and 128, every
 rmsnorm path at an odd row count and every ``block_rows``, the oracle
 gate, launch counting, refused launches, one DSE cell with measured
 rows on cuda, and a two-cell kernel campaign that resumes with no
-launch. The kernels have no CPU mode, so these tests skip where torch
-sees no card; on a machine with an H100 and nvcc run them from the repo
+launch; and the dense model on the card: llama3-8b at full width with 2
+layers, a 2048-token prefill and 8 decode steps in bf16 on the card
+against f32 on the CPU on the same weights, and decode consistency. The
+kernels have no CPU mode, so these tests skip where torch sees no card; on a machine with an H100 and nvcc run them from the repo
 root with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 shared conftest imports jax, which that machine need not have; this file
@@ -219,3 +221,62 @@ def test_rmsnorm_paths_match_plain(rows, d, dtype, kind, block_rows, card):
     agree = conformance.agree_with_plain(
         got, rn.rmsnorm_plain(x, w, block_rows=block_rows))
     assert agree["passed"], agree
+
+
+# ---------------------------------------------------------------------------
+# the dense model on the card
+# ---------------------------------------------------------------------------
+def _rel(want, got) -> float:
+    want, got = want.float().cpu(), got.float().cpu()
+    return float((want - got).abs().max() / want.abs().max())
+
+
+@pytest.fixture(scope="module")
+def llama_2l():
+    """llama3-8b at full width with 2 layers: random bf16 weights made on
+    the card from a seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the model runs there in bf16")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    params, _ = M.init_params(cfg, seed=0, device="cuda")
+    return cfg, params
+
+
+@pytest.mark.cuda
+def test_full_width_prefill_and_decode_match_the_cpu():
+    """bf16 on the card against f32 on the CPU, same weights: a 2048-token
+    prefill and 8 decode steps within ``MODEL_REL`` at every step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the model runs there in bf16")
+    from repro_torch.launch.measure import MODEL_REL, check_against_cpu
+
+    chk = check_against_cpu("llama3-8b", n_layers=2, tokens=2048, steps=8, device="cuda")
+    assert chk["finite"]
+    assert chk["len"] == ([2048 + 8], [2048 + 8])
+    assert max(chk["logits"]) < MODEL_REL, chk["logits"]
+    assert chk["cache"] < MODEL_REL
+    assert chk["ok"]
+
+
+@pytest.mark.cuda
+def test_decode_is_consistent_with_a_longer_prefill_on_the_card(llama_2l):
+    from repro_torch.models import model as M
+
+    from repro_torch.launch.measure import MODEL_REL
+
+    cfg, params = llama_2l
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tok = torch.randint(0, cfg.vocab, (2, 1025), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    with torch.no_grad():
+        _, cache = M.prefill_fn(cfg, params, {"tokens": tok[:, :1024]},
+                                M.init_cache(cfg, 2, 1100, device="cuda"))
+        step, _ = M.decode_fn(cfg, params, {"tokens": tok[:, 1024:]}, cache)
+        full, _ = M.prefill_fn(cfg, params, {"tokens": tok},
+                               M.init_cache(cfg, 2, 1100, device="cuda"))
+    assert _rel(full, step) < MODEL_REL

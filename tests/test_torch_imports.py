@@ -32,7 +32,13 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
     for name in ("repro_torch.launch.dse", "repro_torch.kernels._build",
                  "repro_torch.core.evaluator", "repro_torch.search.greedy",
                  "repro_torch.launch.campaign", "repro_torch.launch.scheduler",
-                 "repro_torch.launch.merge_db", "repro_torch.core.pareto"):
+                 "repro_torch.launch.merge_db", "repro_torch.core.pareto",
+                 "repro_torch.configs", "repro_torch.configs.llama3_8b",
+                 "repro_torch.sharding.plan", "repro_torch.launch.mesh",
+                 "repro_torch.models.layers", "repro_torch.models.transformer",
+                 "repro_torch.models.model", "repro_torch.serve.step",
+                 "repro_torch.serve.sp_attention", "repro_torch.core.step_analysis",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.measure"):
         assert name in out["modules"]
 
 
