@@ -75,7 +75,30 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    layers at full width, a 2048-token prefill and 8 decode steps, in bf16
    on the card against f32 on the CPU on the same weights, within
    ``launch.measure.MODEL_REL`` of the largest |logit| at every step
-   (``launch.measure.check_against_cpu``).
+   (``launch.measure.check_against_cpu``);
+6. train cells (launch counts set to 0 before and read after: the train
+   path runs torch math and launches no kernel of the port), each part
+   printing its result: (a) the dry run of llama3-8b ``train_4k`` on the
+   fake 16x16 mesh (baseline plan, batch 256, in a subprocess on the host
+   while the card works) must write an ``ok`` record with every reference
+   key; (b) the measured tier times a whole llama3-8b train step
+   (forward, backward under ``remat=full``, AdamW) at full width and depth
+   on the card, the global batch cut 256 -> 1 and the plan point baseline
+   + ``opt_int8`` (the baseline's f32 moments take 96.4 GB with the params
+   and grads), beside the 1x1 dry run's bound for that cell; its peak must
+   stay under the card's memory; (c) ``repro_torch.launch.train`` trains
+   qwen3-0.6b at full width on the card (6 steps of 4 x 1024 tokens,
+   checkpoints under the gitignored ``artifacts/``, deleted after), then
+   restarts from its step-5 checkpoint, whose step must give the same loss
+   bit for bit; every loss finite, step time printed apart from the
+   host's data time; (d) one train step of
+   llama3-8b at full width with 2 layers on 2048 tokens, under (b)'s
+   ``remat=full`` and int8 moments, bf16 on the card against f32 on the
+   CPU on the same weights: loss and gradient norm within
+   ``launch.measure.MODEL_REL``, and every gradient leaf, every int8
+   moment and every new param within ``launch.measure.TRAIN_LEAF_REL`` of
+   the leaf's largest value
+   (``launch.measure.check_train_against_cpu``).
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
@@ -297,6 +320,141 @@ def plan_cells(card: str) -> None:
     if launched:
         fail(f"the plan path launched kernels of the port: {launched}")
     print("plan path: 0 kernel launches", flush=True)
+
+
+def train_cells(card: str) -> None:
+    """Phase 6 (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.campaign import make_campaign_mesh
+    from repro_torch.launch.measure import check_train_against_cpu, measure_cell
+    from repro_torch.sharding.plan import baseline_plan
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    # (a) the production-mesh dry run, on the host while the card trains
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = OUT / "dryrun"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "llama3-8b",
+         "--shape", "train_4k", "--mesh", "pod", "--force", "--out", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+    # (b) the measured tier: llama3-8b train_4k at full width and depth,
+    # batch cut 256 -> 1, int8 moments, beside the 1x1 dry run of that cell
+    cfg = get_config("llama3-8b")
+    full = SHAPE_BY_NAME["train_4k"]
+    cell = dataclasses.replace(full, global_batch=1)
+    plan = dataclasses.replace(baseline_plan(cfg, cell), opt_int8=True)
+    n = cfg.n_params()
+    print(f"train cell plan: baseline + opt_int8 ({plan.to_dict()}); the baseline's f32 "
+          f"moments are not run on one card: {n / 1e9:.2f} G params take "
+          f"{n * (2 + 2 + 8) / 1e9:.1f} GB of bf16 params, bf16 grads and f32 m and v, "
+          f"against the card's 80 GB", flush=True)
+    dmesh, _ = make_campaign_mesh("tiny", "cpu")
+    mesh, name = make_campaign_mesh("tiny", "cuda")
+    d = dryrun.run_cell("llama3-8b", "train_4k", dmesh, name, plan, cfg=cfg, cell=cell,
+                        artifact_dir=OUT / "dryrun1x1")
+    if d["status"] != "ok":
+        fail(f"1x1 dry run llama3-8b train_4k: {d.get('error')}")
+    rec = measure_cell("llama3-8b", "train_4k", mesh, name, plan, cfg=cfg, cell=cell, runs=3)
+    if rec["status"] != "ok" or rec["backend"] != "cuda":
+        fail(f"measured tier llama3-8b train_4k: {rec.get('error')} {rec.get('trace')}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not rec["peak_bytes"] < total:
+        fail(f"llama3-8b train step peak {rec['peak_bytes']} B >= the card's {total} B")
+    bound = d["roofline"]["bound_s"]
+    line = {"arch": "llama3-8b", "shape": "train_4k", "mesh": name,
+            "plan": {"name": plan.name, "remat": plan.remat, "opt_int8": plan.opt_int8,
+                     "zero1": plan.zero1, "microbatches": plan.microbatches},
+            "reduced": {"global_batch": [full.global_batch, cell.global_batch]},
+            "measured_s": rec["measured_s"], "times_s": rec["times_s"],
+            "warm_s": rec["warm_s"], "peak_bytes": rec["peak_bytes"],
+            "card_bytes": total, "tokens_per_s": cell.seq_len / rec["measured_s"],
+            "dryrun_bound_s": bound, "dryrun_dominant": d["roofline"]["dominant"],
+            "dryrun_flops": d["hlo"]["flops"], "dryrun_hbm_bytes": d["hlo"]["hbm_bytes"],
+            "dryrun_per_device_bytes": d["memory"]["per_device_bytes"],
+            "share_of_bound": bound / rec["measured_s"], "card": card}
+    print("train cell " + json.dumps(line), flush=True)
+    del rec
+    torch.cuda.empty_cache()
+
+    # (c) the trainer through its entry point: qwen3-0.6b at full width on
+    # the card, then a restart from a checkpoint, whose steps must replay
+    # bit for bit
+    ck = OUT / "train"
+    shutil.rmtree(ck, ignore_errors=True)
+    argv = ["--arch", "qwen3-0.6b", "--steps", "6", "--batch", "4", "--seq", "1024",
+            "--ckpt", str(ck / "ckpt"), "--device", "cuda"]  # checkpoints at 0, 5, 6
+    t = time.perf_counter()
+    train_cli.main(argv + ["--history", str(ck / "first.json")])
+    first = json.loads((ck / "first.json").read_text())
+    train_cli.main(argv + ["--resume-step", "5", "--history", str(ck / "resumed.json")])
+    resumed = json.loads((ck / "resumed.json").read_text())
+    losses = [h["loss"] for h in first]
+    if len(first) != 6 or not all(math.isfinite(x) for x in losses):
+        fail(f"launch.train qwen3-0.6b: losses {losses}")
+    if [h["loss"] for h in resumed] != losses[5:]:
+        fail(f"launch.train qwen3-0.6b resumed from step 5: {[h['loss'] for h in resumed]} "
+             f"!= {losses[5:]}")
+    steps = [h["dt"] for h in first[1:]]
+    shutil.rmtree(ck, ignore_errors=True)  # four checkpoints of 7 GB each
+    print(f"trainer qwen3-0.6b (full width, batch 4 x 1024, f32 AdamW, via "
+          f"repro_torch.launch.train): losses {losses}; resumed from step 5: step 5 "
+          f"equal bit for bit; step time {min(steps) * 1e3:.1f}-{max(steps) * 1e3:.1f} ms "
+          f"after the first ({first[0]['dt'] * 1e3:.1f} ms), host data time "
+          f"{sum(h['data_s'] for h in first) / len(first) * 1e3:.1f} ms a batch "
+          f"({time.perf_counter() - t:.1f} s) [{card}]", flush=True)
+    torch.cuda.empty_cache()
+
+    # (d) one train step in bf16 on the card against f32 on the CPU
+    t = time.perf_counter()
+    chk = check_train_against_cpu(cfg, n_layers=2, tokens=2048, device="cuda")
+    if not chk["ok"]:
+        fail(f"llama3-8b 2 layers train step, bf16 on the card vs f32 on the CPU: {chk}")
+    worst = ", ".join(f"{part} {leaf} {e:.3g}" for part, (leaf, e) in chk["worst"].items())
+    print(f"train check: llama3-8b at full width, 2 layers, one 2048-token step (remat full, "
+          f"int8 moments), bf16 on the card vs f32 on the CPU, same weights: loss "
+          f"{chk['loss_device']:.6g} vs {chk['loss_cpu']:.6g} (rel {chk['loss']:.3g}), grad "
+          f"norm {chk['grad_norm_device']:.6g} vs {chk['grad_norm_cpu']:.6g} (rel "
+          f"{chk['grad_norm']:.3g}), limit {chk['limit']}; worst leaf: {worst}, limit "
+          f"{chk['leaf_limit']} ({time.perf_counter() - t:.1f} s)", flush=True)
+    (OUT / "train_check.json").write_text(json.dumps(chk, indent=1))
+
+    # (a) the dry run's record
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"dry run llama3-8b train_4k pod16x16 exited {proc.returncode}: "
+             f"{stdout[-1000:]} {stderr[-2000:]}")
+    rec = json.loads((out / "llama3-8b__train_4k__pod16x16.json").read_text())
+    for part, keys in DRYRUN_KEYS.items():
+        have = rec[part] if part else rec
+        missing = [k for k in keys if k not in have]
+        if rec["status"] != "ok" or missing:
+            fail(f"dry run llama3-8b train_4k: status {rec['status']}, missing {part} "
+                 f"keys {missing}: {rec.get('error')}")
+    r, m, h = rec["roofline"], rec["memory"], rec["hlo"]
+    print(f"train dry run llama3-8b train_4k pod16x16 (256 fake cards, baseline plan, batch "
+          f"256): bound {r['bound_s'] * 1e3:.2f} ms ({r['dominant']}; compute "
+          f"{r['compute_s'] * 1e3:.2f}, memory {r['memory_s'] * 1e3:.2f}, collective "
+          f"{r['collective_s'] * 1e3:.2f} ms), {m['per_device_bytes'] / 2**30:.3f} GiB per "
+          f"device, fits_hbm {m['fits_hbm']}, {h['flops']:.4g} FLOP and "
+          f"{h['wire_bytes_total']:.4g} wire bytes per device "
+          f"{ {k: f'{v:.4g}' for k, v in h['wire_bytes'].items()} }, traced in "
+          f"{rec['lower_s']} s", flush=True)
+
+    # (e) the train path runs torch math
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    if launched:
+        fail(f"the train path launched kernels of the port: {launched}")
+    print(f"train path: 0 kernel launches; phase 6 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main() -> None:
@@ -902,6 +1060,9 @@ def main() -> None:
 
     # ---- phase 5: plan cells ----
     plan_cells(card)
+
+    # ---- phase 6: train cells ----
+    train_cells(card)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(card, flush=True)

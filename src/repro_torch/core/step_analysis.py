@@ -34,9 +34,23 @@ triangular chunk walk) trace the first and last steps with weight ``n/2``
 each. ``unroll=True`` runs every step with weight 1, which the tests hold
 the weighted counts to.
 
+Backward: autograd runs a traced step's backward ops (and ``remat`` 's
+recompute of its forward) after the walk has left the step. Each traced
+step records the range of autograd sequence numbers its forward created;
+autograd executes nodes in decreasing sequence number, and while a node
+runs (``torch._C._current_autograd_node()``) every op takes the weight of
+the innermost traced step that created it, times the weights of walks
+re-entered by a recompute inside it.
+
 The peak of live local allocations during the step (outputs of ops that
 do not alias an input, freed when their last reference goes) gives the
-temp memory term.
+temp memory term. A step of weight ``w`` stands for ``w`` steps, so while
+autograd records, the bytes it leaves alive (its saved activations, or its
+checkpointed input under ``remat``) are counted ``w - 1`` more times from
+its end until backward has left it, and its own peak is taken on top of
+them. Without autograd a step keeps nothing past its end (caches are
+written in place; what it leaves alive is its input, still named by the
+caller, which the next step would free).
 """
 from __future__ import annotations
 
@@ -45,7 +59,8 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode, _get_current_dispatch_mode_stack
+from torch.utils._python_dispatch import (TorchDispatchMode, _disable_current_modes,
+                                         _get_current_dispatch_mode_stack)
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.core.device import H100_CLUSTER, DeviceModel
@@ -82,6 +97,18 @@ _WRITES = {_aten.copy_.default, _aten.index_put_.default}
 _FUNCOL = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
            "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
            "all_to_all_single": "all-to-all"}
+
+
+def _seq_now() -> int:
+    """The autograd sequence number the next node created will exceed."""
+    with _disable_current_modes(), torch.enable_grad():
+        t = torch.zeros((), requires_grad=True)
+        return (t * 1).grad_fn._sequence_nr()
+
+
+def _backward_node():
+    """The autograd node backward is running, or ``None`` outside backward."""
+    return torch._C._current_autograd_node()
 
 
 def _nbytes(t: torch.Tensor) -> float:
@@ -127,6 +154,10 @@ class StepCounter(TorchDispatchMode):
         self.wire_by_link: Dict[str, float] = defaultdict(float)
         self.live = 0.0
         self.peak = 0.0
+        self._regions = []  # [start, end or None, weight] per traced step
+        self._phantoms = []  # [start, bytes]: what the w - 1 untraced steps keep
+        self._step_peaks = []
+        self._bwd_factor = 1.0
 
     # ------------------------------------------------------------------
     def walk(self, n: int, kind: str = "uniform"):
@@ -141,12 +172,51 @@ class StepCounter(TorchDispatchMode):
         else:
             raise ValueError(f"unknown walk kind {kind!r}")
         for i, w in steps:
+            if _backward_node() is not None:  # a recompute inside backward
+                outer = self._bwd_factor
+                self._bwd_factor = outer * w
+                try:
+                    yield i, w
+                finally:
+                    self._bwd_factor = outer
+                continue
             outer = self.weight
             self.weight = outer * w
+            region = [_seq_now(), None, self.weight]
+            self._regions.append(region)
+            live0 = self.live
+            saves = torch.is_grad_enabled()
+            self._step_peaks.append(live0)
             try:
                 yield i, w
             finally:
                 self.weight = outer
+                region[1] = _seq_now()
+                step_peak = self._step_peaks.pop()
+                extra = (w - 1.0) * (self.live - live0) if saves else 0.0
+                if extra > 0:
+                    self._phantoms.append([region[0], extra])
+                    self.live += extra
+                self._note_peak(step_peak + max(extra, 0.0))
+
+    def _note_peak(self, level: float) -> None:
+        self.peak = max(self.peak, level)
+        if self._step_peaks:
+            self._step_peaks[-1] = max(self._step_peaks[-1], level)
+
+    def _current_weight(self) -> float:
+        node = _backward_node()
+        if node is None:
+            return self.weight
+        seq = node._sequence_nr()
+        while self._phantoms and seq < self._phantoms[-1][0]:
+            self.live -= self._phantoms.pop()[1]  # backward has left that step
+        w = 1.0
+        for start, end, rw in reversed(self._regions):  # innermost first
+            if start < seq and (end is None or seq < end):
+                w = rw
+                break
+        return w * self._bwd_factor
 
     def empty(self, shape, dtype, device) -> torch.Tensor:
         """A fake tensor of ``shape`` (a step input's local shard)."""
@@ -161,7 +231,7 @@ class StepCounter(TorchDispatchMode):
             if isinstance(t, torch.Tensor) and r.alias_info is None:
                 n = _nbytes(t)
                 self.live += n
-                self.peak = max(self.peak, self.live)
+                self._note_peak(self.live)
                 weakref.finalize(t, self._free, n)
 
     def _free(self, n: float) -> None:
@@ -171,7 +241,7 @@ class StepCounter(TorchDispatchMode):
         name = next(a for a in reversed(args) if isinstance(a, str))
         ranks = self.groups.get(name, [0])
         r = _nbytes(out)
-        w = self.weight
+        w = self._w
         self.collect_bytes[kind] += w * r
         wire = w * r * _wire_factor(kind, len(ranks))
         self.wire_bytes[kind] += wire
@@ -200,8 +270,10 @@ class StepCounter(TorchDispatchMode):
         else:
             with self.fake:  # factory: the step's own new tensor
                 out = func(*args, **kwargs)
+        self._w = w = self._current_weight()
+        node = _backward_node()
+        self._routing = node is not None and type(node).__name__ == "CopySlices"
         self._alloc(out, func)
-        w = self.weight
         if func in _PRODUCTS:
             a = args[1] if func in _ADDEND_FIRST else args[0]
             f = 2.0 * out.numel() * a.shape[-1]
@@ -215,7 +287,10 @@ class StepCounter(TorchDispatchMode):
             self.hbm_bytes += w * (sum(_nbytes(t) for t in ops) + _nbytes(out))
         elif func in _GATHERS:
             self.hbm_bytes += w * 2 * _nbytes(out)
-        elif func in _WRITES:  # copy_(dst, src) / index_put_(dst, indices, values)
+        elif func in _WRITES and not self._routing:
+            # copy_(dst, src) / index_put_(dst, indices, values); not the
+            # copies autograd makes to route a gradient through an in-place
+            # write (``CopySlices``), layout work like any other
             src = args[2] if func is _aten.index_put_.default else args[1]
             self.hbm_bytes += w * 2 * _nbytes(src)
         elif func.namespace == "_c10d_functional" and func._opname in _FUNCOL:

@@ -1,7 +1,7 @@
 """Dry-run tier: model one plan cell on a (fake) mesh, with no device.
 
 Counterpart of ``repro/launch/dryrun.py``. For an (architecture x
-input-shape x mesh) cell it builds the serve step under the plan, traces it
+input-shape x mesh) cell it builds the train or serve step under the plan, traces it
 once on fake tensors (sharded as DTensors on the fake mesh) under
 ``core.step_analysis.StepCounter``, and records per-device memory, FLOPs,
 HBM bytes and collective bytes, and the H100 cluster's roofline terms,
@@ -38,6 +38,7 @@ from repro_torch.launch.ioutil import write_json_atomic
 from repro_torch.models import model as M
 from repro_torch.serve import step as serve_step_mod
 from repro_torch.sharding.plan import baseline_plan, is_sharded, shard_offset
+from repro_torch.train import step as train_step_mod
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "port" / "dryrun"
 
@@ -60,12 +61,14 @@ def build_cell(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=No
     """Returns ``((step, inputs, placements), None)`` for one cell, or
     ``(None, reason)`` for an unsupported one.
 
-    ``inputs`` is ``{"params", "batch", "cache"}`` of meta-device stand-ins
-    (global shapes), ``placements`` the plan's placements for each leaf on
-    ``mesh`` (``None`` on a one-device mesh). ``cfg``/``cell`` override the
-    registry lookup (a reduced config, a cut batch); ``ctx`` overrides the
-    step's plan hook (the dry run's counts its loops). Raises
-    ``NotImplementedError`` for families and cell kinds not ported yet.
+    ``inputs`` holds meta-device stand-ins (global shapes): ``{"params",
+    "batch", "cache"}`` for a serve cell, ``{"state", "batch"}`` (the train
+    state: params, optimizer state, error feedback) for a train cell;
+    ``placements`` mirrors it with the plan's placements on ``mesh``
+    (``None`` on a one-device mesh). ``cfg``/``cell`` override the registry
+    lookup (a reduced config, a cut batch); ``ctx`` overrides the step's
+    plan hook (the dry run's counts its loops). Raises
+    ``NotImplementedError`` for families not ported yet.
     """
     cfg = cfg if cfg is not None else get_config(arch)
     cell = cell if cell is not None else SHAPE_BY_NAME[shape_name]
@@ -74,10 +77,20 @@ def build_cell(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=No
         return None, why
     plan = plan or baseline_plan(cfg, cell, multi_pod="pod" in mesh.mesh_dim_names)
     specs = M.input_specs(cfg, cell)
+    sharded = is_sharded(mesh)
+    if cell.kind == "train":
+        state, logical = train_step_mod.abstract_train_state(cfg, plan)
+        inputs = {"state": state, "batch": specs["batch"]}
+        placements = None
+        if sharded:
+            placements = {"state": train_step_mod.state_specs(mesh, plan, state, logical),
+                          "batch": plan.batch_specs(mesh, specs["batch"])}
+        return (train_step_mod.make_train_step(cfg, plan, mesh, ctx=ctx), inputs,
+                placements), None
     params, _ = M.abstract_params(cfg)
     inputs = {"params": params, "batch": specs["batch"], "cache": specs["cache"]}
     placements = None
-    if is_sharded(mesh):
+    if sharded:
         pshard, bshard, cshard = serve_step_mod.serve_shardings(cfg, plan, mesh, specs)
         placements = {"params": pshard, "batch": bshard, "cache": cshard}
     make = (serve_step_mod.make_prefill_step if cell.kind == "prefill"
@@ -91,29 +104,40 @@ def local_shape(mesh, placements, shape):
 
 
 def _fake_inputs(counter: StepCounter, mesh, inputs, placements):
-    """Fake local shards of ``inputs``, as DTensors on a sharded mesh."""
+    """Fake local shards of the (nested dict) ``inputs``, as DTensors on a
+    sharded mesh."""
     from torch.distributed.tensor import DTensor
 
     dev = mesh.device_type
-    out = {}
-    for group, leaves in inputs.items():
-        out[group] = {}
-        for k, v in leaves.items():
-            if placements is None:
-                out[group][k] = counter.empty(v.shape, v.dtype, dev)
-                continue
-            pl = placements[group][k]
-            local = counter.empty(local_shape(mesh, pl, v.shape), v.dtype, dev)
-            out[group][k] = DTensor.from_local(local, mesh, pl, run_check=False,
-                                               shape=v.shape, stride=v.stride())
-    return out
+
+    def one(v, pl):
+        if isinstance(v, dict):
+            return {k: one(x, None if pl is None else pl[k]) for k, x in v.items()}
+        if pl is None:
+            return counter.empty(v.shape, v.dtype, dev)
+        local = counter.empty(local_shape(mesh, pl, v.shape), v.dtype, dev)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=v.shape, stride=v.stride())
+
+    return one(inputs, placements)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def _local_bytes(tree) -> float:
     from torch.distributed.tensor import DTensor
 
     return float(sum((t.to_local() if isinstance(t, DTensor) else t).nbytes
-                     for leaves in tree for t in leaves))
+                     for t in _leaves(tree)))
 
 
 def trace_cell(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=None,
@@ -125,7 +149,9 @@ def trace_cell(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=No
     cell = cell if cell is not None else SHAPE_BY_NAME[shape_name]
     counter = StepCounter(mesh, unroll=unroll)
     plan = plan or baseline_plan(cfg, cell, multi_pod="pod" in mesh.mesh_dim_names)
-    ctx = serve_step_mod.make_ctx(cfg, plan, mesh, decode=cell.kind == "decode")
+    train = cell.kind == "train"
+    ctx = (plan.make_constrain(mesh) if train
+           else serve_step_mod.make_ctx(cfg, plan, mesh, decode=cell.kind == "decode"))
     ctx.walk = counter.walk
     built, why = build_cell(arch, shape_name, mesh, plan, cfg=cfg, cell=cell, ctx=ctx)
     if built is None:
@@ -133,13 +159,19 @@ def trace_cell(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=No
     step, inputs, placements = built
     from torch.distributed.tensor.experimental import implicit_replication
 
-    with torch.no_grad(), implicit_replication():
+    with (torch.enable_grad() if train else torch.no_grad()), implicit_replication():
         args = _fake_inputs(counter, mesh, inputs, placements)
-        arg_bytes = _local_bytes(a.values() for a in args.values())
+        arg_bytes = _local_bytes(args)
         with counter:
-            logits, new_cache = step(args["params"], args["batch"], args["cache"])
-        alias = _local_bytes([[args["cache"]["k"], args["cache"]["v"]]])
-        out_bytes = _local_bytes([[logits], new_cache.values()])
+            if train:
+                new_state, metrics = step(args["state"], args["batch"])
+                alias = _local_bytes(args["state"])
+                outs = [new_state, metrics]
+            else:
+                logits, new_cache = step(args["params"], args["batch"], args["cache"])
+                alias = _local_bytes([args["cache"]["k"], args["cache"]["v"]])
+                outs = [logits, new_cache]
+        out_bytes = _local_bytes(outs)
         fresh_out = out_bytes - alias
     memory = {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
               "temp_bytes": max(counter.peak - fresh_out, 0.0), "alias_bytes": alias}

@@ -10,9 +10,10 @@ device's, never the host's enqueue time. With ``device="cpu"`` the host
 clock times the calls; the record's ``backend`` says which.
 
 ``measure_cell`` builds the same step as ``launch/dryrun.build_cell`` on a
-one-device mesh (``tiny1x1``), with every input (parameters, batch, cache)
-as zeros on the mesh's device: the time of a dense step does not depend on
-the data. A cell too large for one card is measured with a cut global
+one-device mesh (``tiny1x1``), with every input (parameters, batch, cache;
+a train cell's state) as zeros on the mesh's device: the time of a dense
+step does not depend on the data. A train cell's step is a whole one,
+forward, backward and AdamW, fed its own new state. A cell too large for one card is measured with a cut global
 batch (``cell=``; the CLI's ``--batch``). Neither function raises: a failed run is a
 ``status="error"`` record.
 
@@ -24,6 +25,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import sys
 import time
 import traceback
@@ -54,11 +56,20 @@ def _time_call(fn, device: torch.device) -> float:
     return time.perf_counter() - t
 
 
+def _zeros(tree, dev):
+    """Zeros of every meta leaf of a nested dict, on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _zeros(v, dev) for k, v in tree.items()}
+    return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
+
+
 def zero_step(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=None):
     """``(call, None)``: ``call()`` runs one step of the cell, built as
     ``dryrun.build_cell`` builds it on the one-device ``mesh``, on inputs
     that are zeros on the mesh's device; or ``(None, reason)`` for a cell
-    the port does not run."""
+    the port does not run. A serve step runs under ``torch.no_grad()``; a
+    train step is a whole one (forward, backward, AdamW) that updates its
+    zero-initialised state in place, so repeated calls keep its shapes."""
     from repro_torch.launch import dryrun
 
     if mesh.size() != 1:
@@ -68,13 +79,16 @@ def zero_step(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=Non
     if built is None:
         return None, skip
     step, inputs, _ = built
-    args = {g: {k: torch.zeros(v.shape, dtype=v.dtype, device=dev)
-                for k, v in leaves.items()} for g, leaves in inputs.items()}
+    args = _zeros(inputs, dev)
     del inputs
 
-    def call():
-        with torch.no_grad():
-            step(args["params"], args["batch"], args["cache"])
+    if "state" in args:
+        def call():
+            step(args["state"], args["batch"])
+    else:
+        def call():
+            with torch.no_grad():
+                step(args["params"], args["batch"], args["cache"])
 
     return call, None
 
@@ -178,6 +192,88 @@ def check_against_cpu(arch: str = "llama3-8b", *, n_layers: int = 2, tokens: int
     ok = finite and all(e < MODEL_REL for e in errs + [cache])
     return {"logits": errs, "cache": cache, "finite": finite, "ok": ok,
             "len": (dc["len"].tolist(), cc["len"].tolist()), "limit": MODEL_REL}
+
+
+#: the train check's limit on each leaf: max |x(card) - x(CPU)| over max
+#: |x(CPU)| for every gradient leaf, every dequantised int8 moment and
+#: every new param. A leaf's gradient zeroed reads 1 and its sign flipped
+#: reads 2; bf16 alone read at most 0.035 on an H100 at the check's size
+#: (PERF.md §6).
+TRAIN_LEAF_REL = 0.1
+
+
+def check_train_against_cpu(cfg, *, n_layers: int = 2, tokens: int = 2048,
+                            device: str = "cuda", seed: int = 0) -> Dict[str, Any]:
+    """One train step of the dense model ``cfg`` (an ``ArchConfig``) cut to
+    ``n_layers``, on one ``tokens``-token sequence, with random weights from
+    ``seed``: in the config's dtype on ``device`` and in f32 on the CPU, on
+    the same weights and batch, under the plan point the measured tier
+    times llama3-8b at (``remat="full"``, int8 moments). The step is the
+    train step's own parts, ``loss_fn``'s gradients then ``adamw_update``
+    (warmup 1, so step 1 runs at the peak learning rate), so that the
+    gradients can be compared too.
+
+    Returns the loss's and the gradient norm's relative errors (``loss``,
+    ``grad_norm``) and both sides' values; for each leaf of the gradients,
+    of the moments m and v and of the new params, max |error| over the CPU
+    leaf's max |value| (``leaves``: ``{"grad", "m", "v", "param"}`` ->
+    ``{leaf: error}``) and the worst of each (``worst``: ``(leaf,
+    error)``); whether the device's values were finite; and ``ok``: every
+    error finite, the two scalars below ``MODEL_REL`` and each leaf below
+    ``TRAIN_LEAF_REL``."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.plan import ShardingPlan
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import step as step_mod
+
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    plan = ShardingPlan(rules={}, remat="full", opt_int8=True, zero1=False)
+    opt_cfg = opt_mod.AdamWConfig(warmup_steps=1)
+    state, _ = step_mod.init_train_state(cfg, plan, seed=seed, device=device)
+    cpu = step_mod._new_state({k: v.float().cpu() for k, v in state["params"].items()}, plan)
+    gen = torch.Generator().manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab, (2, 1, tokens), generator=gen, dtype=torch.int32)
+    batch = {"tokens": tok[0], "targets": tok[1]}
+
+    def step(c, st, b):
+        leaves = {k: p.detach().requires_grad_() for k, p in st["params"].items()}
+        with torch.enable_grad():
+            loss, _ = M.loss_fn(c, leaves, b, remat=plan.remat)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        _, _, om = opt_mod.adamw_update(opt_cfg, st["params"], grads, st["opt"])
+        return {"loss": float(loss.detach()), "grad_norm": float(om["grad_norm"])}, grads
+
+    dm, dgrads = step(cfg, state, {k: v.to(device) for k, v in batch.items()})
+    cm, cgrads = step(cfg32, cpu, batch)
+    out: Dict[str, Any] = {"finite": True, "limit": MODEL_REL, "leaf_limit": TRAIN_LEAF_REL}
+    for k in ("loss", "grad_norm"):
+        d, c = dm[k], cm[k]
+        out[k] = abs(d - c) / abs(c)
+        out[f"{k}_device"], out[f"{k}_cpu"] = d, c
+        out["finite"] = out["finite"] and math.isfinite(d)
+
+    def mom(st, part, k):
+        q = st["opt"][part][k]
+        return opt_mod._dq8(q["q"], q["s"], q["q"].shape)
+
+    pairs = {"grad": lambda st, g, k: g[k],
+             "m": lambda st, g, k: mom(st, "m", k),
+             "v": lambda st, g, k: mom(st, "v", k),
+             "param": lambda st, g, k: st["params"][k]}
+    out["leaves"], out["worst"] = {}, {}
+    for part, get in pairs.items():
+        errs = {}
+        for k in cgrads:
+            want, got = get(cpu, cgrads, k), get(state, dgrads, k).float().cpu()
+            out["finite"] = out["finite"] and bool(torch.isfinite(got).all())
+            errs[k] = float((want - got).abs().max() / want.abs().max())
+        out["leaves"][part] = errs
+        out["worst"][part] = max(errs.items(), key=lambda kv: kv[1])
+    out["ok"] = (out["finite"] and all(out[k] < MODEL_REL for k in ("loss", "grad_norm"))
+                 and all(e < TRAIN_LEAF_REL for errs in out["leaves"].values()
+                         for e in errs.values()))
+    return out
 
 
 def measure_kernel_cell(kshape, dims: Dict[str, Any], *,

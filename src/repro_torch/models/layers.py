@@ -18,6 +18,9 @@ Conventions
   its grouped-query layout does not survive DTensor's view rules.
 * Loops over layers and chunks go through ``constrain.walk`` so the dry run
   can trace representative steps and weight them by the trip count.
+* Under autograd each q chunk is recomputed in backward (the reference's
+  ``jax.checkpoint`` of each q step), and the f32-score product has a
+  backward of its own (``_ProductF32``).
 """
 from __future__ import annotations
 
@@ -132,18 +135,62 @@ def _mask_scores_(s: torch.Tensor, q0: int, k0: int, causal: bool,
         s[..., a:z] += _block_mask(qpos, kpos, causal, window).to(s.dtype)
 
 
-def _product_f32(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``alpha * (a @ b)`` batched, stored in f32 whatever the operands'
-    type: a bf16 product accumulates in f32 and is never rounded to bf16
-    (the reference's ``preferred_element_type=jnp.float32``), with the
-    scale in the product's epilogue."""
+def _product_f32_into(a: torch.Tensor, b: torch.Tensor, alpha: float,
+                      out: Optional[torch.Tensor]) -> torch.Tensor:
     if out is None:
         out = torch.empty((*a.shape[:-1], b.shape[-1]), dtype=torch.float32, device=a.device)
     if a.dtype == torch.float32 or (a.device.type == "cpu" and not is_fake(a)):
         # the CPU has no mixed-type product: upcast the operands (exact)
         return torch.baddbmm(out, a.float(), b.float(), beta=0, alpha=alpha, out=out)
     return torch.baddbmm(out, a, b, beta=0, alpha=alpha, out_dtype=torch.float32, out=out)
+
+
+class _ProductF32(torch.autograd.Function):
+    """``_product_f32`` with a backward: the two products of the f32
+    gradient with the other operand, in f32 (JAX's transpose of a product
+    with ``preferred_element_type=f32`` promotes the bf16 operand to f32),
+    each rounded once to its operand's type."""
+
+    @staticmethod
+    def forward(ctx, a, b, alpha):
+        ctx.save_for_backward(a, b)
+        ctx.alpha = alpha
+        return _product_f32_into(a, b, alpha, None)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).mul_(ctx.alpha).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).mul_(ctx.alpha).to(b.dtype)
+        return ga, gb, None
+
+
+def _product_f32(a: torch.Tensor, b: torch.Tensor, *, alpha: float = 1.0,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``alpha * (a @ b)`` batched, stored in f32 whatever the operands'
+    type: a bf16 product accumulates in f32 and is never rounded to bf16
+    (the reference's ``preferred_element_type=jnp.float32``), with the
+    scale in the product's epilogue. Under autograd (no ``out=``, which
+    autograd refuses) it is ``_ProductF32``."""
+    if out is None and torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ProductF32.apply(a, b, alpha)
+    return _product_f32_into(a, b, alpha, out)
+
+
+def _chunk_call(fn, *args):
+    """``fn(*args)`` for one q chunk; under autograd its activations are
+    recomputed in backward instead of kept (the reference's
+    ``jax.checkpoint`` of each q step), so the chunks' f32 scores, the full
+    S x S per layer, never live at once."""
+    if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                       for a in args):
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def _attend_chunk(qc: torch.Tensor, kt: torch.Tensor, vg: torch.Tensor, scale: float,
@@ -193,9 +240,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vg = v.permute(0, 2, 1, 3).contiguous()  # [b, kh, sk, d]
     out = q.new_empty(q.shape)
     for i, _ in walk(nq, "uniform"):
-        o = _attend_chunk(_grouped(q[:, i * c:(i + 1) * c], kh), kt, vg, scale,
-                          (q_offset + i * c, 0, causal, window))
-        out[:, i * c:(i + 1) * c] = _ungrouped(o)
+        # no name holds a chunk's output past its step: what a traced step
+        # leaves alive stands for every untraced one (``StepCounter.walk``)
+        out[:, i * c:(i + 1) * c] = _ungrouped(_chunk_call(
+            _attend_chunk, _grouped(q[:, i * c:(i + 1) * c], kh), kt, vg, scale,
+            (q_offset + i * c, 0, causal, window)))
     return out[:, :sq]
 
 
@@ -223,9 +272,9 @@ def chunked_attention_tri(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for i, _ in walk(n, "affine" if window is None else "all"):
         lo = 0 if w_chunks is None else max(0, i - w_chunks) * c
         hi = (i + 1) * c
-        o = _attend_chunk(_grouped(q[:, i * c:hi], kh), kt[..., lo:hi], vg[:, :, lo:hi],
-                          scale, (i * c, lo, True, window, s))
-        out[:, i * c:hi] = _ungrouped(o)
+        out[:, i * c:hi] = _ungrouped(_chunk_call(
+            _attend_chunk, _grouped(q[:, i * c:hi], kh), kt[..., lo:hi], vg[:, :, lo:hi],
+            scale, (i * c, lo, True, window, s)))
     return out[:, :s]
 
 

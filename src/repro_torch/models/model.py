@@ -1,8 +1,8 @@
 """Unified model API: family dispatch, abstract shapes and input specs.
 
-Counterpart of ``repro/models/model.py`` for the serve cells of the dense
-family. ``abstract_params``, ``abstract_cache`` and ``input_specs`` give
-tensors on the ``meta`` device (shapes and dtypes, never allocated), which
+Counterpart of ``repro/models/model.py`` for the dense family.
+``abstract_params``, ``abstract_cache`` and ``input_specs`` give tensors
+on the ``meta`` device (shapes and dtypes, never allocated), which
 the dry run turns into sharded fake tensors and the measured tier into
 zeros on the card.
 """
@@ -24,13 +24,6 @@ def _family(cfg: ArchConfig) -> None:
             f"with the other model families, ROADMAP queue 1 item 9")
 
 
-def _serve_kind(cell: ShapeCell) -> None:
-    if cell.kind == "train":
-        raise NotImplementedError(
-            f"train cells ({cell.name}) come with the train slice "
-            f"(train/{{step,optimizer,grad_compress}}.py, ROADMAP queue 1)")
-
-
 # ---------------------------------------------------------------------------
 # init / prefill / decode dispatch
 # ---------------------------------------------------------------------------
@@ -43,6 +36,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cpu"):
 def abstract_params(cfg: ArchConfig):
     """(meta-device values, logical axes) without allocating anything."""
     return init_params(cfg, device="meta")
+
+
+def loss_fn(cfg: ArchConfig, params, batch, constrain=lambda a, k: a, remat: str = "none",
+            loss_chunk: int = 0):
+    """(loss, metrics) of a train batch ``{"tokens", "targets"}``."""
+    _family(cfg)
+    return transformer.dense_loss(cfg, params, batch, constrain, remat, loss_chunk)
 
 
 def prefill_fn(cfg: ArchConfig, params, batch, cache, constrain=lambda a, k: a):
@@ -102,14 +102,17 @@ def cell_supported(cfg: ArchConfig, cell: ShapeCell) -> Tuple[bool, str]:
 
 
 def input_specs(cfg: ArchConfig, cell: ShapeCell) -> Dict[str, Any]:
-    """Meta-device stand-ins for every model input of a serve cell.
+    """Meta-device stand-ins for every model input of a cell.
 
+    train   -> {"batch": {"tokens": (B, S), "targets": (B, S)}}
     prefill -> {"batch": {"tokens": (B, S)}, "cache": {...}}
     decode  -> {"batch": {"tokens": (B, 1)}, "cache": {...}}
     """
     _family(cfg)
-    _serve_kind(cell)
     B, S = cell.global_batch, cell.seq_len
+    if cell.kind == "train":
+        return {"batch": {k: torch.empty((B, S), dtype=torch.int32, device="meta")
+                          for k in ("tokens", "targets")}}
     cache = abstract_cache(cfg, B, S)
     n = S if cell.kind == "prefill" else 1
     return {"batch": {"tokens": torch.empty((B, n), dtype=torch.int32, device="meta")},

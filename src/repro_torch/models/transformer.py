@@ -2,9 +2,11 @@
 
 Counterpart of the dense half of ``repro/models/transformer.py``. Layers
 are stacked on a leading axis, as in the reference (whose ``lax.scan``
-keeps its HLO depth-independent); here a Python loop over
-``constrain.walk`` indexes them, and the dry run traces one layer and
-weights it by the depth. The cache layout is the reference's,
+keeps its HLO depth-independent); here they are taken apart by one
+``unbind`` and a Python loop over ``constrain.walk`` runs them, each under
+the plan's ``remat`` while autograd records, and the dry run traces one
+layer and weights it by the depth. ``dense_loss`` is the train cells'
+cross-entropy. The cache layout is the reference's,
 ``[n_layers, b, S, kh, dh]``, and is updated in place (the reference
 donates it).
 """
@@ -45,16 +47,24 @@ def init_dense(cfg, seed: int = 0, device="cpu"):
     return init.values, init.axes
 
 
-def layer_params(params: Dict[str, torch.Tensor], i: int) -> Dict[str, Dict]:
-    """Layer ``i`` 's parameters as ``{"ln1", "attn": {...}, "ln2", "mlp": {...}}``."""
+def layer_stack(params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    """Each stacked ``blocks.*`` parameter taken apart into its layers by
+    one ``unbind`` (views): under autograd its backward is one ``stack``
+    of the layers' gradients, where indexing layer by layer would give
+    each layer a full-size zero gradient of the whole stack."""
+    return {k: v.unbind(0) for k, v in params.items() if k.startswith("blocks.")}
+
+
+def layer_params(stack: Dict[str, tuple], i: int) -> Dict[str, Dict]:
+    """Layer ``i`` 's parameters, from ``layer_stack``, as ``{"ln1", "attn":
+    {...}, "ln2", "mlp": {...}}``."""
     out: Dict = {"attn": {}, "mlp": {}}
-    for k, v in params.items():
-        if k.startswith("blocks."):
-            path = k.split(".")[1:]
-            if len(path) == 1:
-                out[path[0]] = v[i]
-            else:
-                out[path[0]][path[1]] = v[i]
+    for k, v in stack.items():
+        path = k.split(".")[1:]
+        if len(path) == 1:
+            out[path[0]] = v[i]
+        else:
+            out[path[0]][path[1]] = v[i]
     return out
 
 
@@ -114,19 +124,58 @@ def _layer_body(cfg, constrain, x, lp, lcache, positions, window):
     return h + constrain(m, "hidden"), new_cache
 
 
-def _run_layers(cfg, params, x, positions, cache, constrain):
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the results of products with no batch dims
+    (the projections and the MLP: ``mm``, or a product over a batch of
+    one), recompute everything else, attention's batched products included
+    (the reference's ``checkpoint_dots_with_no_batch_dims``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    batched = {aten.bmm.default: 0, aten.baddbmm.default: 1}
+    if op in (aten.mm.default, aten.addmm.default) or (
+            op in batched and args[batched[op]].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(remat: str, fn, *args):
+    """``fn(*args)`` under the plan's ``remat`` while autograd records:
+    ``full`` recomputes the whole layer in backward, ``dots`` all but the
+    products ``_dots_policy`` keeps, ``none`` keeps every activation."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    elif remat != "full":
+        raise ValueError(f"unknown remat {remat!r}")
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+def _run_layers(cfg, params, x, positions, cache, constrain, remat: str = "none"):
     """The layer loop; ``cache`` (or ``None``) is updated in place."""
     walk = getattr(constrain, "walk", full_walk)
+    stack = layer_stack(params)
     for i, _ in walk(cfg.n_layers, "uniform"):
         lcache = None
         if cache is not None:
             lcache = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
-        x, _ = _layer_body(cfg, constrain, x, layer_params(params, i), lcache,
-                           positions, cfg.swa_window)
+
+        def body(x, lp):
+            return _layer_body(cfg, constrain, x, lp, lcache, positions, cfg.swa_window)[0]
+
+        x = _remat(remat, body, x, layer_params(stack, i))
     return L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
 
 
-def dense_forward(cfg, params, batch, *, cache=None, constrain=lambda a, k: a):
+def dense_forward(cfg, params, batch, *, cache=None, constrain=lambda a, k: a,
+                  remat: str = "none"):
     """Returns (hidden [b,s,d], new_cache)."""
     if cache is None:
         x, positions = _embed_inputs(cfg, params, batch, constrain)
@@ -136,10 +185,103 @@ def dense_forward(cfg, params, batch, *, cache=None, constrain=lambda a, k: a):
         x = torch.nn.functional.embedding(tok, params["embed"])
         positions = cache["len"][:, None] + torch.zeros_like(tok)
         x = constrain(x, "hidden")
-    x = _run_layers(cfg, params, x, positions, cache, constrain)
+    x = _run_layers(cfg, params, x, positions, cache, constrain, remat)
     new_cache = None if cache is None else {"k": cache["k"], "v": cache["v"],
                                             "len": cache["len"] + 1}
     return x, new_cache
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[tgt] in f32, with the vocab split across shards:
+    ``logits`` is this shard's [b, s, V_l] slice, starting at vocab entry
+    ``v_off``, and ``reduce(x, op)`` all-reduces over the mesh dims that
+    split the vocab. The max, the sum of exponentials and the target's
+    logit are all-reduced ([b, s] each), so no shard gathers the logits;
+    the gradient, softmax minus the one-hot target, needs no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, tgt, v_off, reduce):
+        lf = logits.float()
+        vl = lf.shape[-1]
+        m = reduce(lf.amax(-1), "max")
+        lse = m + torch.log(reduce(torch.exp(lf - m[..., None]).sum(-1), "sum"))
+        local = tgt.long() - v_off
+        mine = (local >= 0) & (local < vl)
+        idx = local.clamp(0, vl - 1)
+        t = reduce(torch.where(mine, lf.gather(-1, idx[..., None])[..., 0], 0.0), "sum")
+        ctx.save_for_backward(logits, lse, idx, mine)
+        return lse - t
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, mine = ctx.saved_tensors
+        p = torch.exp(logits.float() - lse[..., None])
+        p.scatter_add_(-1, idx[..., None], -mine.float()[..., None])
+        return (p * g[..., None]).to(logits.dtype), None, None, None
+
+
+def _nll(constrain, logits, tgt):
+    """-log softmax(logits)[tgt] in f32 (targets below 0 give entry 0's).
+    On a sharded mesh the vocab stays split (``_VocabParallelNLL``), where
+    DTensor's log_softmax would gather the f32 logits on every shard."""
+    mesh = getattr(constrain, "mesh", None)
+    from torch.distributed.tensor import DTensor
+
+    tc = tgt.clamp(min=0)
+    if not (is_sharded(mesh) and isinstance(logits, DTensor)):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, -1, tc.long()[..., None])[..., 0]
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+
+    lp = logits.placements
+    dims = [i for i, p in enumerate(lp) if p.is_shard(2)]
+    v_off, _ = shard_offset(mesh, lp, logits.shape[2], 2)
+    tp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in lp)
+
+    def reduce(x, op):
+        for i in dims:
+            x = funcol.all_reduce(x, op, (mesh, i))
+        return x
+
+    return local_call(lambda lg, t: _VocabParallelNLL.apply(lg, t, v_off, reduce), mesh,
+                      [(logits, lp), (tc, tp)], [tp])
+
+
+def ce_loss(cfg, params, x, tgt, constrain, loss_chunk: int = 0):
+    """Cross-entropy on hidden states, in f32; targets below 0 are masked.
+    ``loss_chunk`` > 0 walks the sequence in chunks, each under
+    ``torch.utils.checkpoint``, so the [B, S, vocab] logits never exist at
+    once (the reference's scan, a DSE memory-term knob). Returns (mean
+    loss, token count)."""
+
+    def one(xc, tc):
+        # the head's input gathered over its sequence shards, as a projection's
+        logits = constrain(_logits(cfg, params, constrain(xc, "hidden_in")), "logits")
+        nll = _nll(constrain, logits, tc)
+        mask = (tc >= 0).float()
+        return (nll * mask).sum(), mask.sum()
+
+    b, s, _ = x.shape
+    if loss_chunk and s > loss_chunk and s % loss_chunk == 0:
+        tot = cnt = None
+        walk = getattr(constrain, "walk", full_walk)
+        for i, _ in walk(s // loss_chunk, "uniform"):
+            sl = slice(i * loss_chunk, (i + 1) * loss_chunk)
+            nll, m = _remat("full", one, x[:, sl], tgt[:, sl])
+            tot, cnt = (nll, m) if tot is None else (tot + nll, cnt + m)
+    else:
+        tot, cnt = one(x, tgt)
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def dense_loss(cfg, params, batch, constrain=lambda a, k: a, remat: str = "none",
+               loss_chunk: int = 0):
+    """Returns (loss, {"loss", "aux", "tokens"}), as the reference's."""
+    x, _ = dense_forward(cfg, params, batch, constrain=constrain, remat=remat)
+    ce, tokens = ce_loss(cfg, params, x, batch["targets"], constrain, loss_chunk)
+    return ce, {"loss": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device),
+                "tokens": tokens}
 
 
 def init_dense_cache(cfg, batch_size: int, max_len: int, dtype: torch.dtype,

@@ -21,6 +21,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import torch
+
 # logical dims of each activation "kind" passed to constrain(x, kind)
 ACT_KINDS: Dict[str, Tuple[Optional[str], ...]] = {
     # residual carry: "seq" may be mesh-sharded (Megatron-style SP); compute
@@ -221,6 +223,24 @@ def shard_offset(mesh, placements, global_size: int, dim: int) -> Tuple[int, int
     return off, size
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous on its way back: DTensor
+    wraps a local gradient with the strides of the forward's local tensor,
+    and views of a gradient laid out otherwise fail."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _contiguous_grad(x):
+    return _ContiguousGrad.apply(x) if x.requires_grad else x
+
+
 def local_call(fn, mesh, args: Sequence[Tuple[Any, Tuple]], out_placements: Sequence[Tuple]):
     """Run ``fn`` on local shards, like ``shard_map``: each DTensor in
     ``args`` (given as ``(tensor, placements)``) is redistributed to its
@@ -231,8 +251,8 @@ def local_call(fn, mesh, args: Sequence[Tuple[Any, Tuple]], out_placements: Sequ
         return fn(*(a for a, _ in args))
     from torch.distributed.tensor import DTensor
 
-    local = [a.redistribute(mesh, pl).to_local() if isinstance(a, DTensor) else a
-             for a, pl in args]
+    local = [_contiguous_grad(a.redistribute(mesh, pl).to_local()) if isinstance(a, DTensor)
+             else a for a, pl in args]
     out = fn(*local)
     single = not isinstance(out, tuple)
     wrapped = tuple(DTensor.from_local(o, mesh, pl, run_check=False)

@@ -17,6 +17,8 @@ root with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
 shared conftest imports jax, which that machine need not have; this file
 imports none of it)."""
+import math
+
 import pytest
 import torch
 
@@ -280,3 +282,81 @@ def test_decode_is_consistent_with_a_longer_prefill_on_the_card(llama_2l):
         full, _ = M.prefill_fn(cfg, params, {"tokens": tok},
                                M.init_cache(cfg, 2, 1100, device="cuda"))
     assert _rel(full, step) < MODEL_REL
+
+
+# ---------------------------------------------------------------------------
+# the train step on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_full_width_train_step_matches_the_cpu():
+    """One train step of llama3-8b at full width, 2 layers, 2048 tokens,
+    ``remat=full`` and int8 moments: bf16 on the card against f32 on the
+    CPU, same weights and batch; loss and gradient norm within
+    ``MODEL_REL``, each gradient leaf, moment and new param within
+    ``TRAIN_LEAF_REL`` (``pytest -s`` prints the worst of each)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the model runs there in bf16")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.measure import (MODEL_REL, TRAIN_LEAF_REL,
+                                            check_train_against_cpu)
+
+    chk = check_train_against_cpu(get_config("llama3-8b"), n_layers=2, tokens=2048,
+                                  device="cuda")
+    print(f"loss {chk['loss']:.3g}, grad norm {chk['grad_norm']:.3g}, worst {chk['worst']}")
+    assert chk["finite"]
+    assert chk["loss"] < MODEL_REL and chk["grad_norm"] < MODEL_REL, chk
+    for part, (leaf, err) in chk["worst"].items():
+        assert err < TRAIN_LEAF_REL, (part, leaf, err)
+    assert chk["ok"]
+
+
+@pytest.mark.cuda
+def test_full_width_train_check_catches_a_wrong_attention_gradient(monkeypatch):
+    """The same check with a fault on the card only: the score product's
+    gradient to q dropped in bf16. The loss is untouched (the global
+    gradient norm, which the embedding and the head dominate at 2 layers,
+    moves little: ``pytest -s`` prints it); the leaves that reach the
+    scores through q alone read 1 and fail the check."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fault is on the card's side")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.measure import MODEL_REL, check_train_against_cpu
+    from repro_torch.models import layers as TL
+
+    backward = TL._ProductF32.backward
+
+    def faulty(ctx, g):
+        ga, gb, n = backward(ctx, g)
+        return (torch.zeros_like(ga) if ga is not None and ga.is_cuda else ga), gb, n
+
+    monkeypatch.setattr(TL._ProductF32, "backward", staticmethod(faulty))
+    chk = check_train_against_cpu(get_config("llama3-8b"), n_layers=2, tokens=2048,
+                                  device="cuda")
+    print(f"fault: loss {chk['loss']:.3g}, grad norm {chk['grad_norm']:.3g}, "
+          f"grad leaves {chk['leaves']['grad']}")
+    assert chk["loss"] < MODEL_REL
+    assert chk["leaves"]["grad"]["blocks.attn.wq"] == pytest.approx(1.0)
+    assert not chk["ok"]
+
+
+@pytest.mark.cuda
+def test_train_launcher_resumes_bit_for_bit_on_the_card(tmp_path):
+    """``launch.train`` on the card: 20 steps of the reduced qwen3-0.6b, then
+    a restart from step 15 whose losses equal the first run's bit for bit;
+    no kernel of the port is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    base = ["--arch", "qwen3-0.6b", "--reduced", "--steps", "20",
+            "--ckpt", str(tmp_path / "ck"), "--device", "cuda"]
+    train.main(base + ["--history", str(tmp_path / "a.json")])
+    train.main(base + ["--resume-step", "15", "--history", str(tmp_path / "b.json")])
+    a = [h["loss"] for h in json.loads((tmp_path / "a.json").read_text())]
+    b = [h["loss"] for h in json.loads((tmp_path / "b.json").read_text())]
+    assert len(a) == 20 and all(math.isfinite(x) for x in a) and b == a[15:]
+    assert not any(ops.launch_counts().values())

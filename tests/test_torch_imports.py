@@ -38,7 +38,11 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
                  "repro_torch.models.layers", "repro_torch.models.transformer",
                  "repro_torch.models.model", "repro_torch.serve.step",
                  "repro_torch.serve.sp_attention", "repro_torch.core.step_analysis",
-                 "repro_torch.launch.dryrun", "repro_torch.launch.measure"):
+                 "repro_torch.launch.dryrun", "repro_torch.launch.measure",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.grad_compress", "repro_torch.train.step",
+                 "repro_torch.train.data", "repro_torch.train.checkpoint",
+                 "repro_torch.train.trainer", "repro_torch.launch.train"):
         assert name in out["modules"]
 
 

@@ -117,7 +117,13 @@ def test_other_families_and_train_cells_name_their_slice():
 
     with pytest.raises(NotImplementedError, match="queue 1 item 9"):
         TM.init_params(tget("mixtral-8x7b"), device="meta")
-    with pytest.raises(NotImplementedError, match="train slice"):
-        TM.input_specs(tget("llama3-8b"), SHAPE_BY_NAME["train_4k"])
+    # train cells are ported: the reference's int32 [B, S] tokens and targets
+    want = JM.input_specs(get_config("llama3-8b"), SHAPE_BY_NAME["train_4k"])["batch"]
+    got = TM.input_specs(tget("llama3-8b"), SHAPE_BY_NAME["train_4k"])["batch"]
+    assert set(got) == set(want) == {"tokens", "targets"}
+    for k, v in got.items():
+        assert tuple(v.shape) == want[k].shape and v.dtype == torch.int32
+    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        TM.input_specs(tget("mixtral-8x7b"), SHAPE_BY_NAME["train_4k"])
     assert TM.cell_supported(tget("llama3-8b"), SHAPE_BY_NAME["long_500k"]) == \
         JM.cell_supported(get_config("llama3-8b"), SHAPE_BY_NAME["long_500k"])

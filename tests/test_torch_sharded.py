@@ -3,6 +3,12 @@ processes on a real ``gloo`` group run the dense model's prefill and two
 decode steps as DTensors under a plan (the dry run only ever traces this
 program on fake tensors), and every rank checks the gathered logits and
 KV cache against the plain run, within 1e-4 of the largest value (f32).
+The train step likewise: one step of the baseline train plan (ZeRO-1
+moments, full remat) and one of microbatches, int8 moments and loss
+chunks on a 2x2 mesh, against the plain step on the same weights and
+batch: loss and gradient norm within 1e-5, the new params within 1e-6
+where |g| >= 1e-3 max|g| (step 1's Adam update is +-lr, so a gradient
+that rounds to the other side of zero flips it).
 
 Meshes: 2x2 (KV heads sharded with the q heads) and 1x4 (2 KV heads on 4
 q-head shards: each shard reads the KV head its q heads share), each
@@ -17,6 +23,9 @@ import torch
 import torch.multiprocessing as mp
 
 WORLD = 4
+#: intra-op threads of each worker: four workers at the host's default
+#: would oversubscribe the cores the rest of the suite runs on
+THREADS = 2
 
 
 def _free_port() -> int:
@@ -36,6 +45,7 @@ def _worker(rank: int, port: int, errors) -> None:
     from repro_torch.serve import step as S
     from repro_torch.sharding.plan import baseline_plan
 
+    torch.set_num_threads(THREADS)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=WORLD)
     try:
@@ -95,6 +105,89 @@ def test_sharded_serve_steps_match_the_plain_run():
     errors = ctx.Manager().list()
     port = _free_port()
     procs = [ctx.Process(target=_worker, args=(r, port, errors)) for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=240)
+    alive = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not alive, f"workers still running after 240 s: {alive}"
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    assert list(errors) == []
+
+
+def _train_worker(rank: int, port: int, errors) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import SHAPE_BY_NAME, get_config, reduced
+    from repro_torch.sharding.plan import ShardingPlan, baseline_plan
+    from repro_torch.train import step as T
+
+    torch.set_num_threads(THREADS)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=WORLD)
+    try:
+        cfg = reduced(get_config("qwen3-0.6b"))
+        gen = torch.Generator().manual_seed(2)
+        tok = torch.randint(0, cfg.vocab, (2, 4, 64), generator=gen, dtype=torch.int32)
+        batch = {"tokens": tok[0], "targets": tok[1]}
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        base = baseline_plan(cfg, SHAPE_BY_NAME["train_4k"])
+        for over in ({}, {"microbatches": 2, "opt_int8": True, "loss_chunk": 32}):
+            plan = dataclasses.replace(base, **over)
+            plain = ShardingPlan(rules={}, zero1=False, remat="none",
+                                 opt_int8=plan.opt_int8)
+            state, logical = T.init_train_state(cfg, plan, seed=0)
+            want = {k: v.clone() for k, v in state["params"].items()}
+            ref, wm = T.make_train_step(cfg, plain)(
+                T._new_state(want, plain), batch)
+            leaves = {k: v.detach().requires_grad_() for k, v in state["params"].items()}
+            from repro_torch.models import model as M
+
+            loss, _ = M.loss_fn(cfg, leaves, batch)
+            grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+            specs = T.state_specs(mesh, plan, state, logical)
+
+            def place(tree, pl):
+                if isinstance(tree, dict):
+                    return {k: place(v, pl[k]) for k, v in tree.items()}
+                return distribute_tensor(tree, mesh, pl)
+
+            dstate = place(state, specs)
+            bp = plan.batch_specs(mesh, batch)
+            dbatch = {k: distribute_tensor(v, mesh, bp[k]) for k, v in batch.items()}
+            with implicit_replication():
+                dstate, dm = T.make_train_step(cfg, plan, mesh)(dstate, dbatch)
+                got = {k: v.full_tensor() for k, v in dstate["params"].items()}
+                mets = {k: float(v.full_tensor() if isinstance(v, DTensor) else v)
+                        for k, v in dm.items()}
+            bad = [k for k in ("loss", "grad_norm")
+                   if abs(mets[k] - float(wm[k])) > 1e-5 * abs(float(wm[k]))]
+            for k, g in grads.items():
+                big = g.abs() >= 1e-3 * g.abs().max()
+                if float((got[k] - ref["params"][k]).abs()[big].max()) > 1e-6:
+                    bad.append(k)
+            if bad:
+                errors.append(f"rank {rank} train {over}: {bad} {mets} "
+                              f"{ {k: float(v) for k, v in wm.items()} }")
+    except Exception as e:  # noqa: BLE001 — reported to the parent, which fails the test
+        import traceback
+
+        errors.append(f"rank {rank}: {type(e).__name__}: {e}\n{traceback.format_exc()[-1500:]}")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_train_step_matches_the_plain_step():
+    ctx = mp.get_context("spawn")
+    errors = ctx.Manager().list()
+    port = _free_port()
+    procs = [ctx.Process(target=_train_worker, args=(r, port, errors)) for r in range(WORLD)]
     for p in procs:
         p.start()
     for p in procs:
