@@ -98,13 +98,35 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    ``launch.measure.MODEL_REL``, and every gradient leaf, every int8
    moment and every new param within ``launch.measure.TRAIN_LEAF_REL`` of
    the leaf's largest value
-   (``launch.measure.check_train_against_cpu``).
+   (``launch.measure.check_train_against_cpu``);
+7. the plan loop (launch counts set to 0 before and read after: the loop
+   runs torch math and launches no kernel of the port), each cell through
+   ``repro_torch.launch.dse --space plans`` on the fake 16x16 mesh with the
+   default ensemble (greedy, the mock LLM member, anneal, evolve), the
+   surrogate gate at 3.0, iterations of 4 dry runs over 4 worker
+   processes, and the best heads measured on the card at the largest
+   power-of-two batch whose 1x1 dry run fits 90% of its memory (the cut
+   listed as ``reduced``; a head the card then cannot hold is an ``error``
+   row): llama3-8b ``decode_32k`` (2 iterations, 2 heads), then the same
+   command from an empty DB beside the same caches, which must trace no
+   dry run and time no head, then qwen3-0.6b ``train_4k`` (4 iterations,
+   so that the surrogate's LoRA fine-tune runs; 1 head, 1 timed step).
+   Each cell prints its baseline and best bound, rows by status and
+   source, the LLM member's proposals, the gate, the surrogate's
+   fine-tunes, each head's time, cut, peak bytes and share of
+   its 1x1 bound, and the wall time of the loop and of its dry runs; a
+   cell fails on any ``error`` row and on a head that is not ``ok`` on
+   ``cuda``. Then the paper's §4 demo
+   (``repro_torch.examples.dse_vecmul``): the mock LLM turns the Appendix
+   prompt into the vecmul design, which runs on the card through the
+   vecmul kernel (its launches are the "loop" path's) and must equal
+   ``kernels/ref.py`` exactly.
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
 the main path also launched has an entry of its own, ``<kernel>/<route>``),
-``launches`` sums the main-path runs (phase 3, the campaign and the Pareto
-cell, each counted from 0; ``launches_by_path`` splits them), then the
+``launches`` sums the main-path runs (phase 3, the campaign, the Pareto
+cell and phase 7, each counted from 0; ``launches_by_path`` splits them), then the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. It imports nothing of jax or of the JAX package.
 """
@@ -457,6 +479,103 @@ def train_cells(card: str) -> None:
           flush=True)
 
 
+def plan_loop(card: str):
+    """Phase 7 (see the module docstring); returns the launch and route
+    counts of the phase (the §4 demo's vecmul)."""
+    import torch
+
+    from repro_torch.core.cost_db import CostDB
+    from repro_torch.examples import dse_vecmul
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dse
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    common = ["--space", "plans", "--mesh", "pod", "--strategy", "ensemble", "--llm", "mock",
+              "--budget", "4", "--workers", "4", "--gate-factor", "3.0"]
+    # the second cell runs 4 iterations: the surrogate is pre-trained at
+    # the 2nd and LoRA-fine-tuned at the 4th
+    cells = [("llama3-8b", "decode_32k", ["--iterations", "2", "--measure-top-k", "2"], True),
+             ("qwen3-0.6b", "train_4k", ["--iterations", "4", "--measure-top-k", "1",
+                                         "--measure-runs", "1"], False)]
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch, shape, extra, replay in cells:
+        out = OUT / "loop" / f"{arch}__{shape}"
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--arch", arch, "--shape", shape, *common, *extra,
+                "--db", str(out / "cost_db.jsonl"), "--report", str(out / "report.json")]
+        rep = dse.main(argv)
+        errors = {d: n for d, n in rep["rows_by_status"].items() if d == "error"}
+        if errors or rep["baseline"] is None or rep["best"] is None:
+            rows = CostDB(out / "cost_db.jsonl").all()
+            fail(f"plan loop {arch} {shape}: {errors}, baseline "
+                 f"{rep['baseline'] and rep['baseline']['status']}: "
+                 f"{[(d.point, d.fidelity, d.reason) for d in rows if d.status == 'error'][:2]}")
+        heads = rep["measured"]
+        bad = [m for m in heads if m["status"] != "ok" or m.get("backend") != "cuda"]
+        if not heads or bad:
+            fail(f"plan loop {arch} {shape}: measured heads must be ok on cuda: {heads}")
+        for m in heads:
+            if not m["peak_bytes"] < total:
+                fail(f"plan loop {arch} {shape}: head peak {m['peak_bytes']} B >= {total} B")
+        b0, b1 = rep["baseline"]["metrics"]["bound_s"], rep["best"]["metrics"]["bound_s"]
+        print("plan loop " + json.dumps({
+            "arch": arch, "shape": shape, "mesh": rep["mesh"], "baseline_bound_s": b0,
+            "best_bound_s": b1, "improvement": rep["improvement"],
+            "best_point": {k: v for k, v in rep["best"]["point"].items() if k != "__key__"},
+            "rows_by_status": rep["rows_by_status"], "rows_by_source": rep["rows_by_source"],
+            "llm": rep.get("llm"), "gate": rep.get("gate"), "finetunes": rep["finetunes"],
+            "iterations": [{k: it[k] for k in ("iteration", "evaluated", "compiled", "pruned",
+                                                "sources", "allocation", "best_bound")}
+                           for it in rep["iterations"]],
+            "dry_runs": rep["compiles"], "dryrun_s": rep["dryrun_s"], "loop_s": rep["loop_s"],
+            "wall_s": rep["wall_s"], "card": card}), flush=True)
+        for m in heads:
+            print("plan loop head " + json.dumps({
+                "arch": arch, "shape": shape, "point": m["point"],
+                "measured_s": m["measured_s"], "reduced": m["reduced"],
+                "peak_bytes": m["peak_bytes"], "bound_s_1x1": m["bound_s_1x1"],
+                "per_device_bytes_1x1": m["per_device_bytes_1x1"],
+                "share_of_1x1_bound": m["share_of_1x1_bound"], "bound_s_pod": m["bound_s"],
+                "device_name": m["device_name"], "card": card}), flush=True)
+        if replay:
+            # the same command from an empty DB beside the same caches
+            (out / "cost_db.jsonl").unlink()
+            t = time.perf_counter()
+            again = dse.main(argv)
+            if again["compiles"] or again["measured_timed"] or \
+                    again["measured_replayed"] != len(heads):
+                fail(f"plan loop {arch} {shape} replay: {again['compiles']} dry runs, "
+                     f"{again['measured_timed']} timed, {again['measured_replayed']} replayed")
+            print(f"plan loop replay {arch} {shape}: 0 dry runs traced, measured tier: 0 "
+                  f"timed, {again['measured_replayed']} replayed ({time.perf_counter() - t:.1f} "
+                  f"s)", flush=True)
+        torch.cuda.empty_cache()
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    if launched:
+        fail(f"the plan loop launched kernels of the port: {launched}")
+    print("plan loop: 0 kernel launches", flush=True)
+
+    # the paper's §4 demo: the mock LLM's design on the card's vecmul kernel
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    demo = dse_vecmul.run("cuda", db_path=OUT / "demo" / "vecmul_db.jsonl", verbose=False)
+    counts, route_counts = ops.launch_counts(), ops.route_launch_counts()
+    others = {k: n for k, n in counts.items() if n and k != "vecmul"}
+    if counts["vecmul"] == 0 or others or demo["max_abs_err"] != 0.0:
+        fail(f"§4 demo: launches {counts}, max|err| {demo['max_abs_err']}")
+    print("demo " + json.dumps({
+        "design": demo["design"]["parameters"], "kernel": demo["design"]["kernel"],
+        "device": demo["device"], "max_abs_err_vs_ref": demo["max_abs_err"],
+        "modelled_us": demo["resources"]["est_latency_us"],
+        "threads": demo["resources"]["threads"], "sweep": demo["sweep"],
+        "best_block": demo["best_block"], "negatives": demo["negatives"],
+        "launches": counts["vecmul"], "s": round(time.perf_counter() - t, 2),
+        "card": card}), flush=True)
+    print(f"phase 7 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, route_counts
+
+
 def main() -> None:
     import torch
 
@@ -717,8 +836,8 @@ def main() -> None:
         try:
             bad_dir = OUT / f"{kernel}_inject"
             shutil.rmtree(bad_dir, ignore_errors=True)
-            dse.main(["--arch", kernel, "--shape", shape_name, "--iterations", "0",
-                      "--db", str(bad_dir / "cost_db.jsonl")])
+            dse.main(["--space", "kernels", "--arch", kernel, "--shape", shape_name,
+                      "--iterations", "0", "--db", str(bad_dir / "cost_db.jsonl")])
         finally:
             del os.environ[conformance.INJECT_ENV]
         base = CostDB(bad_dir / "cost_db.jsonl").all()[0]
@@ -1063,6 +1182,12 @@ def main() -> None:
 
     # ---- phase 6: train cells ----
     train_cells(card)
+
+    # ---- phase 7: the plan loop and the §4 demo ----
+    path_counts["loop"] = plan_loop(card)
+    for r in results:
+        kernel, route = r["name"].split("/")[0], r["kernel_route"]
+        r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel, route)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(card, flush=True)

@@ -49,6 +49,9 @@ class DataPoint:
     # the measurement reported alongside.
     fidelity: str = "dryrun"
 
+    def negative(self) -> bool:
+        return self.status != "ok"
+
     def to_json(self) -> str:
         return json.dumps(self.__dict__, sort_keys=True, default=str)
 
@@ -62,7 +65,7 @@ class DataPoint:
         return DataPoint(**d)
 
 
-# featurization used by the learned cost model
+# featurization used by both RAG retrieval and the learned cost model
 _CATEGORICAL = {
     "batch_rule": ("data", "data+model"),
     "seq_rule": (None, "model"),

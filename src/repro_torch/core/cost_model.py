@@ -1,15 +1,20 @@
-"""Learned surrogate cost model: a small MLP over plan/tile features.
+"""Learned surrogate cost model: a small MLP over plan/tile features,
+LoRA-fine-tuned on the cost DB.
 
-Counterpart of ``repro/core/cost_model.py`` (without LoRA, which waits).
-It predicts (log10 bound, feasibility) from design + workload features so
-a strategy can pre-rank candidates before paying for an evaluation: a tanh
-MLP with ``HIDDEN = (64, 64)``, a log10-bound head and a sigmoid
-feasibility head, trained by plain full-batch gradient descent.
+Counterpart of ``repro/core/cost_model.py``. It predicts (log10 bound,
+feasibility) from design + workload features so a strategy can pre-rank
+candidates before paying for an evaluation: a tanh MLP with ``HIDDEN =
+(64, 64)``, a log10-bound head and a sigmoid feasibility head, trained by
+plain full-batch gradient descent. The base is pre-trained once
+(:meth:`CostModel.pretrain`); later adaptation trains low-rank adapters
+on the frozen base (:meth:`CostModel.finetune_lora`, ``core/lora.py``),
+as §3.2.2 says.
 
 State carries across packages: :meth:`CostModel.from_numpy` takes the
 reference's parameters as numpy arrays (``w0, b0, w1, b1, w_out, b_out``,
 weights laid out [in, out]), after which both packages predict and rank
-the same way. The model is tiny and runs on the CPU.
+the same way. ``lora`` takes adapters the same way (``lora.lora_from_numpy``). The
+model is tiny and runs on the CPU.
 """
 from __future__ import annotations
 
@@ -20,9 +25,19 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import lora as lora_mod
 from repro_torch.core.cost_db import CostDB, featurize
 
 HIDDEN = (64, 64)
+
+
+def mlp_forward(params: Mapping[str, torch.Tensor],
+                x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    h = x
+    for i in range(len(HIDDEN)):
+        h = torch.tanh(h @ params[f"w{i}"] + params[f"b{i}"])
+    out = h @ params["w_out"] + params["b_out"]
+    return out[..., 0], torch.sigmoid(out[..., 1])  # (log10 bound, p_feasible)
 
 
 def _loss(pred, pf, y, feas):
@@ -41,6 +56,7 @@ class CostModel(nn.Module):
             {k: nn.Parameter(v.detach().to(torch.float32).clone())
              for k, v in params.items()})
         self.trained = False
+        self.lora: Optional[lora_mod.Adapters] = None
 
     @classmethod
     def create(cls, in_dim: int, seed: int = 0) -> "CostModel":
@@ -66,13 +82,13 @@ class CostModel(nn.Module):
     def to_numpy(self) -> Dict[str, np.ndarray]:
         return {k: v.detach().cpu().numpy() for k, v in self.params.items()}
 
+    def _effective(self) -> Dict[str, torch.Tensor]:
+        if self.lora is None:
+            return dict(self.params)
+        return lora_mod.apply_lora(dict(self.params), self.lora)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        p = self.params
-        h = x
-        for i in range(len(HIDDEN)):
-            h = torch.tanh(h @ p[f"w{i}"] + p[f"b{i}"])
-        out = h @ p["w_out"] + p["b_out"]
-        return out[..., 0], torch.sigmoid(out[..., 1])  # (log10 bound, p_feasible)
+        return mlp_forward(self._effective(), x)
 
     def predict(self, feats: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         x = torch.as_tensor(np.asarray(feats, np.float32))
@@ -93,14 +109,48 @@ class CostModel(nn.Module):
         Xt, yt, ft = (torch.from_numpy(a) for a in (X, y, feas))
         params = list(self.params.values())
         for _ in range(steps):
-            loss = _loss(*self(Xt), yt, ft)
+            loss = _loss(*mlp_forward(self.params, Xt), yt, ft)
             grads = torch.autograd.grad(loss, params)
             with torch.no_grad():
                 for p, g in zip(params, grads):
                     p -= lr * g
         self.trained = True
         with torch.no_grad():
-            return float(_loss(*self(Xt), yt, ft))
+            return float(_loss(*mlp_forward(self.params, Xt), yt, ft))
+
+    def finetune_lora(self, db: CostDB, rank: int = 4, steps: int = 200,
+                      lr: float = 5e-3, seed: int = 1,
+                      split: Optional[str] = "train") -> float:
+        """LoRA adaptation: base frozen, adapters trained by full-batch
+        gradient descent on the grown DB (``train`` split by default;
+        ``val`` stays held out for the gate). The adapters are made on the
+        first call, from a ``torch.Generator`` seeded with ``seed``, and
+        kept after it. Returns the final loss, or nan with fewer than 4
+        rows."""
+        X, y, feas = db.training_set(split=split)
+        if X.shape[0] < 4:
+            return float("nan")
+        if self.lora is None:
+            self.lora = lora_mod.init_lora(dict(self.params),
+                                           torch.Generator().manual_seed(seed), rank)
+        Xt, yt, ft = (torch.from_numpy(a) for a in (X, y, feas))
+        base = {k: v.detach() for k, v in self.params.items()}
+        leaves = [t for ad in self.lora.values() if ad is not None for t in ad.values()]
+
+        def loss_of():
+            return _loss(*mlp_forward(lora_mod.apply_lora(base, self.lora), Xt), yt, ft)
+
+        for _ in range(steps):
+            for t in leaves:
+                t.requires_grad_(True)
+            grads = torch.autograd.grad(loss_of(), leaves)
+            with torch.no_grad():
+                for t, g in zip(leaves, grads):
+                    t -= lr * g
+        for t in leaves:
+            t.requires_grad_(False)
+        with torch.no_grad():
+            return float(loss_of())
 
     def validation_error(self, db: CostDB, *, arch: Optional[str] = None,
                          shape: Optional[str] = None,

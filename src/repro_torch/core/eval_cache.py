@@ -1,8 +1,9 @@
 """Content-addressed evaluation result cache.
 
-Counterpart of ``repro/core/eval_cache.py``, copied. Kernel cells keep
-their gate-and-resources records here (``dryrun_cache/``) and their
-timings beside it (``measured_cache/``).
+Counterpart of ``repro/core/eval_cache.py``, copied. Plan cells keep
+their dry-run records here (``dryrun_cache/``), kernel cells their
+gate-and-resources records, and both their timings beside it
+(``measured_cache/``).
 
 Evaluations dominate DSE wall-clock (a kernel launch and an oracle check
 per design vs microseconds for everything else in the loop). Every design

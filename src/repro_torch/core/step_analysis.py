@@ -42,15 +42,17 @@ runs (``torch._C._current_autograd_node()``) every op takes the weight of
 the innermost traced step that created it, times the weights of walks
 re-entered by a recompute inside it.
 
-The peak of live local allocations during the step (outputs of ops that
-do not alias an input, freed when their last reference goes) gives the
-temp memory term. A step of weight ``w`` stands for ``w`` steps, so while
-autograd records, the bytes it leaves alive (its saved activations, or its
-checkpointed input under ``remat``) are counted ``w - 1`` more times from
-its end until backward has left it, and its own peak is taken on top of
-them. Without autograd a step keeps nothing past its end (caches are
-written in place; what it leaves alive is its input, still named by the
-caller, which the next step would free).
+The peak of live local allocations during the step (each new storage an
+op's outputs make, counted once and freed when the storage goes: a
+detached alias, as selective checkpointing and a recompute keep of what
+they save, holds the bytes as long as the tensor itself) gives the temp
+memory term. A step of weight ``w`` stands for ``w`` steps, so while
+autograd records, the bytes it leaves alive (its saved activations, or
+its checkpointed input under ``remat``) are counted ``w - 1`` more times
+from its end until backward has left it, and its own peak is taken on
+top of them. Without autograd a step keeps nothing past its end (caches
+are written in place; what it leaves alive is its input, still named by
+the caller, which the next step would free).
 """
 from __future__ import annotations
 
@@ -116,13 +118,18 @@ def _nbytes(t: torch.Tensor) -> float:
 
 
 def _group_table(mesh) -> Dict[str, list]:
-    """Process-group name -> the ranks of rank 0's group, for each mesh dim
-    and the world."""
+    """Process-group name -> the ranks of rank 0's group, for every live
+    group of the process: the mesh's dims and the world, and the groups of
+    older meshes of the same shape, which DTensor's cached sharding
+    propagation can hand a step's outputs back on."""
     import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _world
 
     table = {}
     if mesh is None or not dist.is_initialized():
         return table
+    for pg, name in _world.pg_names.items():
+        table[name] = dist.get_process_group_ranks(pg)
     table[dist.group.WORLD.group_name] = list(range(dist.get_world_size()))
     if mesh.size() > 1:
         for i in range(mesh.ndim):
@@ -154,6 +161,7 @@ class StepCounter(TorchDispatchMode):
         self.wire_by_link: Dict[str, float] = defaultdict(float)
         self.live = 0.0
         self.peak = 0.0
+        self._storages = set()  # the live storages counted in ``live``
         self._regions = []  # [start, end or None, weight] per traced step
         self._phantoms = []  # [start, bytes]: what the w - 1 untraced steps keep
         self._step_peaks = []
@@ -229,12 +237,19 @@ class StepCounter(TorchDispatchMode):
         outs = out if isinstance(out, (tuple, list)) else (out,)
         for r, t in zip(rets, outs):
             if isinstance(t, torch.Tensor) and r.alias_info is None:
+                # once per storage: some ops return their input's storage
+                # without saying so in their schema (``_unsafe_view``)
+                storage = t.untyped_storage()
+                if storage._cdata in self._storages:
+                    continue
                 n = _nbytes(t)
+                self._storages.add(storage._cdata)
                 self.live += n
                 self._note_peak(self.live)
-                weakref.finalize(t, self._free, n)
+                weakref.finalize(storage, self._free, storage._cdata, n)
 
-    def _free(self, n: float) -> None:
+    def _free(self, key: int, n: float) -> None:
+        self._storages.discard(key)
         self.live -= n
 
     def _collective(self, kind: str, args, out) -> None:

@@ -234,7 +234,7 @@ def main(argv=None):
     """CLI entry: sweep the requested arch x shape x mesh grid, skipping
     cells whose ``ok``/``skipped`` artifacts already exist (``--force``
     recomputes). Exits 1 if any cell errored, 0 otherwise."""
-    from repro_torch.launch.campaign import make_campaign_mesh
+    from repro_torch.launch.mesh import make_campaign_mesh
 
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun")
     ap.add_argument("--arch", default="all", help="arch id or 'all'")

@@ -144,6 +144,82 @@ def measure_cell(arch: str, shape_name: str, mesh, mesh_name: str,
     return rec
 
 
+#: the share of the card's memory (``H100_SXM.hbm_bytes``) that a cut
+#: cell's modelled bytes per device may fill: the dry run's peaks read up
+#: to 2.1% under the card's (prefill 27.07 vs 27.65 GB; nine qwen3-0.6b
+#: train plans within 1.3%, ``scripts/plan_fit_probe.py``; PERF.md §6)
+FIT_SHARE = 0.9
+
+
+def one_device_batch(arch: str, shape_name: str, plan, *, cfg, cell,
+                     artifact_dir: Path, run_name: str) -> Dict[str, Any]:
+    """The global batch at which ``plan`` runs the cell on one card: the
+    largest power-of-two multiple of ``plan.microbatches`` (or the cell's
+    own batch, when that fits) whose one-device dry run
+    (``dryrun.run_cell`` on the CPU's 1x1 mesh: fake tensors, no device)
+    models at most ``FIT_SHARE`` of the H100's memory per device.
+
+    A dense cell's bytes are affine in the batch, so the dry runs at the
+    first two batches fix the line and one at the chosen batch confirms
+    it (halving while it does not). Returns ``status`` ``ok`` with
+    ``batch``, that dry run's ``per_device_bytes``, ``bound_s`` and
+    ``dominant``, and ``traced`` (batch -> modelled bytes); ``skipped``
+    with the reason when even the first batch does not fit (or the cell is
+    unsupported); or ``error`` when a dry run failed."""
+    from repro_torch.core.device import H100_SXM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_campaign_mesh
+
+    limit = FIT_SHARE * H100_SXM.hbm_bytes
+    mesh, _ = make_campaign_mesh("tiny", "cpu")
+    recs: Dict[int, Dict[str, Any]] = {}
+
+    def nbytes(b: int):
+        """The modelled bytes per device at batch ``b``, or the failed record."""
+        if b not in recs:
+            recs[b] = dryrun.run_cell(arch, shape_name, mesh, f"{run_name}-b{b}", plan,
+                                      artifact_dir, cfg=cfg,
+                                      cell=dataclasses.replace(cell, global_batch=b))
+        rec = recs[b]
+        return rec["memory"]["per_device_bytes"] if rec["status"] == "ok" else rec
+
+    full = cell.global_batch
+    b0 = max(int(plan.microbatches), 1)
+    if b0 > full:
+        return {"status": "skipped", "reason": f"{b0} microbatches exceed the cell's "
+                                               f"global batch {full}"}
+    m0 = nbytes(b0)
+    if isinstance(m0, dict):
+        return {k: m0[k] for k in ("status", "reason", "error") if k in m0}
+    if m0 > limit:
+        return {"status": "skipped",
+                "reason": (f"does not fit one card at global batch {b0}: "
+                           f"{m0 / 1e9:.1f} GB modelled > {limit / 1e9:.1f} GB "
+                           f"({FIT_SHARE:.0%} of {H100_SXM.hbm_bytes / 1e9:.0f} GB)")}
+    b = b0
+    if 2 * b0 <= full:
+        m1 = nbytes(2 * b0)
+        if isinstance(m1, dict):
+            return {k: m1[k] for k in ("status", "reason", "error") if k in m1}
+        slope = (m1 - m0) / b0
+        while 2 * b <= full and m0 + slope * (2 * b - b0) <= limit:
+            b *= 2
+        if b != full and m0 + slope * (full - b0) <= limit:
+            b = full
+    while True:
+        m = nbytes(b)
+        if isinstance(m, dict):
+            return {k: m[k] for k in ("status", "reason", "error") if k in m}
+        if m <= limit or b == b0:
+            break
+        b = max(b // 2, b0)
+    rec = recs[b]
+    return {"status": "ok", "batch": b, "per_device_bytes": m,
+            "bound_s": rec["roofline"]["bound_s"], "dominant": rec["roofline"]["dominant"],
+            "traced": {str(k): (r["memory"]["per_device_bytes"] if r["status"] == "ok"
+                                else None) for k, r in sorted(recs.items())}}
+
+
 #: bf16 on the card against f32 on the CPU (``check_against_cpu``), as a
 #: share of the largest |value| of the f32 result. bf16 alone departs from
 #: f32 by about this much at the check's size: ``scripts/bf16_gap.py``
@@ -367,7 +443,7 @@ def main(argv=None) -> None:
         ap.error(f"--runs must be >= 1, got {args.runs}")
     from repro_torch.configs import ARCH_NAMES, SHAPE_BY_NAME
     from repro_torch.core.device import resolve_device
-    from repro_torch.launch.campaign import make_campaign_mesh
+    from repro_torch.launch.mesh import make_campaign_mesh
 
     if args.arch not in ARCH_NAMES:
         ap.error(f"unknown arch {args.arch!r}")

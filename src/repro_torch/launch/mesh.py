@@ -15,12 +15,24 @@ with plain tensors.
 A process has one default group, so this module owns its lifetime: a
 mesh of another size than the current group's tears the group down and
 makes one of its own size (rank 0 of ``n``). Meshes made before that are
-stale.
+stale, and so are DTensor's cached sharding decisions, which hold the mesh
+they were made on (a spec's mesh compares equal to a new mesh of the same
+shape): they are dropped with the group.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Dict, Sequence
+
+#: ``--mesh`` choice -> (shape, axis names, mesh name): the paper-scale
+#: 16x16 (data, model) pod and 2x16x16 multipod, the 2x4 parity mesh and
+#: the measured tier's one device
+CAMPAIGN_MESHES = {
+    "tiny": ((1, 1), ("data", "model"), "tiny1x1"),
+    "small": ((2, 4), ("data", "model"), "small2x4"),
+    "pod": ((16, 16), ("data", "model"), "pod16x16"),
+    "multipod": ((2, 16, 16), ("pod", "data", "model"), "multipod2x16x16"),
+}
 
 
 def _ensure_world(n: int) -> None:
@@ -31,8 +43,27 @@ def _ensure_world(n: int) -> None:
     if dist.is_initialized():
         if dist.get_world_size() == n and dist.get_backend() == "fake":
             return
+        _clear_dtensor_caches()
         dist.destroy_process_group()
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+
+
+def _clear_dtensor_caches() -> None:
+    """Drop DTensor's cached sharding propagation (the Python caches and,
+    where torch has it, the native dispatch cache): its output specs keep
+    the mesh (and so the process groups) they were computed on, and would
+    be handed back for an equal mesh on a new group."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache", None)
+    if native is not None:
+        native()
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for name in ("propagate_op_sharding", "_propagate_tensor_meta_cached"):
+        clear = getattr(getattr(prop, name, None), "cache_clear", None)
+        if clear is not None:
+            clear()
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device: str = "cuda"):
@@ -48,12 +79,19 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device: str = "cuda"):
                             mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The paper-scale mesh: 16x16 (data, model), or 2x16x16 with a leading
-    ``pod`` axis, on a fake group of 256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+def campaign_mesh_shape(name: str) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``--mesh`` choice, without making it."""
+    shape, axes, _ = CAMPAIGN_MESHES[name]
+    return dict(zip(axes, shape))
+
+
+def make_campaign_mesh(name: str, device: str = "cuda"):
+    """The mesh for a ``--mesh`` choice; returns ``(mesh, mesh_name)``.
+    ``tiny`` (1x1, on ``device``) is the measured tier's; the others live
+    on a fake process group, which making one of another size remakes:
+    meshes made before that are stale."""
+    shape, axes, mesh_name = CAMPAIGN_MESHES[name]
+    return make_mesh(shape, axes, device), mesh_name
 
 
 def single_device_mesh(device: str = "cuda"):

@@ -482,6 +482,52 @@ def _write_prompt(start, cache, new, S: int):
     return cache
 
 
+def _sharded_on(w, dim: int) -> bool:
+    """Whether ``w`` is a DTensor sharded on ``dim`` (negative from the end)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(w, DTensor) and any(p.is_shard(w.ndim + dim) for p in w.placements)
+
+
+def gathered(w, dim: int):
+    """``w`` with its shards of ``dim`` (the model width, ``embed``)
+    gathered: a ZeRO-3 weight (``embed_rule=data``) is all-gathered before
+    its use, as FSDP does and as GSPMD does for the reference, and its
+    gradient reduce-scattered back. Left to itself DTensor can shard an
+    attention product's (heads, head_dim) pair where a head count below the
+    mesh dim cannot take it back, and (torch 2.11) asks backward to turn a
+    shard into a partial sum, which it cannot."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not _sharded_on(w, dim):
+        return w
+    d = w.ndim + dim
+    return w.redistribute(w.device_mesh,
+                          [Replicate() if p.is_shard(d) else p for p in w.placements])
+
+
+def _project_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [b, s, d] by w [d, h, k] -> [b, s, h, k]. einsum flattens the
+    weight's (h, k) pair; DTensor cannot carry a shard of the trailing k
+    through that flatten, so a head_dim-sharded weight is contracted as
+    [d, k, h], its shard leading the pair."""
+    w = gathered(w, -3)
+    if _sharded_on(w, -1):
+        return torch.einsum("bsd,dkh->bskh", x, w.transpose(-1, -2)).transpose(-1, -2)
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
+
+def _project_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """o [b, s, h, k] by w [h, k, d] -> [b, s, d], contracting (h, k) as
+    (k, h) when the weight is head_dim-sharded (see ``_project_in``)."""
+    w = gathered(w, -1)
+    if _sharded_on(w, -2):
+        k, h = o.shape[-1], o.shape[-2]
+        return (o.transpose(-1, -2).reshape(*o.shape[:-2], k * h)
+                @ w.transpose(-2, -3).reshape(k * h, w.shape[-1]))
+    return torch.einsum("bshk,hkd->bsd", o, w)
+
+
 def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None, cache=None,
@@ -490,9 +536,9 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
     ``{"k", "v", "len"}``) is updated in place."""
     b, s, _ = x.shape
     x = constrain(x, "hidden_in")
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = _project_in(x, p["wq"])
+    k = _project_in(x, p["wk"])
+    v = _project_in(x, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -540,7 +586,7 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                 q_, k_, v_, causal=causal, window=window, walk=walk), q, k, v)
             new_cache = {"k": kc, "v": vc, "len": ln + s}
     o = constrain(o, "heads")
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    out = _project_out(o, p["wo"])
     return out, new_cache
 
 
@@ -564,7 +610,7 @@ def init_mlp(init: ParamInit, prefix: str, d: int, ff: int, lora_rank: int = 0,
 def mlp_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
               constrain=lambda a, k: a) -> torch.Tensor:
     x = constrain(x, "hidden_in")
-    hpre = x @ p["wi"]
-    hid = torch.nn.functional.silu(x @ p["wg"]) * hpre
+    hpre = x @ gathered(p["wi"], -2)
+    hid = torch.nn.functional.silu(x @ gathered(p["wg"], -2)) * hpre
     hid = constrain(hid, "ffn")
-    return hid @ p["wo"]
+    return hid @ gathered(p["wo"], -1)

@@ -71,14 +71,15 @@ def layer_params(stack: Dict[str, tuple], i: int) -> Dict[str, Dict]:
 def _embed_inputs(cfg, params, batch, constrain):
     """Token embedding. Returns (x [b,s,d], positions [b,s])."""
     tok = batch["tokens"]
-    x = torch.nn.functional.embedding(tok, params["embed"])
+    x = torch.nn.functional.embedding(tok, L.gathered(params["embed"], -1))
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     return constrain(x, "hidden"), positions
 
 
 def _logits(cfg, params, x):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = (L.gathered(params["embed"], -1).T if cfg.tie_embeddings
+         else L.gathered(params["lm_head"], -2))
     return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
 
@@ -182,7 +183,7 @@ def dense_forward(cfg, params, batch, *, cache=None, constrain=lambda a, k: a,
     else:
         # decode: single new token at position cache["len"]
         tok = batch["tokens"]  # [b, 1]
-        x = torch.nn.functional.embedding(tok, params["embed"])
+        x = torch.nn.functional.embedding(tok, L.gathered(params["embed"], -1))
         positions = cache["len"][:, None] + torch.zeros_like(tok)
         x = constrain(x, "hidden")
     x = _run_layers(cfg, params, x, positions, cache, constrain, remat)

@@ -1,7 +1,7 @@
 """Pluggable search-strategy protocol (SECDA-DSE's interchangeable engines).
 
-Counterpart of ``repro/search/base.py``, copied with what the kernel-cell
-strategies use. A :class:`SearchStrategy` is anything with
+Counterpart of ``repro/search/base.py``, copied. A :class:`SearchStrategy`
+is anything with
 
     propose(state)  -> candidates to evaluate this iteration
     observe(dps)    -> ingest the evaluated results (positive AND negative)
@@ -21,7 +21,7 @@ import numpy as np
 
 from repro_torch.core.cost_db import (MAXIMIZE_OBJECTIVES, CostDB, DataPoint,
                                       featurize, objectives_of)
-from repro_torch.core.design_space import KernelTemplate, PlanPoint
+from repro_torch.core.design_space import KernelTemplate, PlanPoint, PlanTemplate
 
 
 # Named scalarization-weight vectors for Pareto search: each arm turns the
@@ -85,7 +85,7 @@ class SearchState:
     shape: str
     cfg: Any
     cell: Any
-    template: KernelTemplate
+    template: PlanTemplate | KernelTemplate
     db: CostDB
     iteration: int
     budget: int
@@ -165,14 +165,16 @@ def select_candidates(state: SearchState, cands: Sequence[Candidate],
     return rank_candidates(state, list(uniq.values()))[: state.budget]
 
 
-def repair(template: KernelTemplate, point: PlanPoint) -> PlanPoint:
-    """Template-delegated candidate repair (``KernelTemplate.repair`` snaps
-    to the pools and shrinks tiles until the block fits the card), so the
-    strategies stay design-space-agnostic."""
+def repair(template: PlanTemplate | KernelTemplate, point: PlanPoint) -> PlanPoint:
+    """Template-delegated candidate repair: each design space owns its own
+    cross-dimension fixes (``PlanTemplate.repair`` drops a clashing
+    microbatch count to 1; ``KernelTemplate.repair`` snaps to the pools and
+    shrinks tiles until the block fits the card), so the strategies stay
+    design-space-agnostic."""
     return template.repair(point)
 
 
-def mutate(template: KernelTemplate, point: PlanPoint, rng: random.Random,
+def mutate(template: PlanTemplate | KernelTemplate, point: PlanPoint, rng: random.Random,
            n_dims: int = 1) -> PlanPoint:
     """Mutate ``n_dims`` randomly-chosen dimensions to random legal values
     (the reference's draws, in the reference's order)."""

@@ -1,7 +1,6 @@
 """Budget-splitting ensemble with bandit-style credit assignment.
 
-Counterpart of ``repro/search/ensemble.py``, copied; the port's ensemble
-has no LLM member (greedy, anneal and evolve).
+Counterpart of ``repro/search/ensemble.py``, copied.
 
 Each iteration the per-iteration evaluation budget is divided among member
 strategies in proportion to their credit — an exponentially-decayed count of

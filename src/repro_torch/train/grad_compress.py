@@ -11,7 +11,11 @@ Error feedback accumulates the residual ``g - decompress(compress(g))``
 into the next step, so compression bias does not accumulate. In one
 process the codec's round trip is the numerics-faithful stand-in for the
 compressed collective; the byte saving is credited in the roofline's
-collective term (``wire_bytes_factor``).
+collective term (``wire_bytes_factor``). On a sharded mesh ``topk`` picks
+its threshold from the whole gradient: each DTensor gradient is gathered
+for the codec and sliced back to its placements after it, as a sort over
+a sharded dim is gathered under GSPMD (and DTensor cannot flatten a
+tensor sharded twice on one dim without walking its every element).
 """
 from __future__ import annotations
 
@@ -62,9 +66,23 @@ def compress_decompress(kind: str, grads: Dict[str, torch.Tensor],
     for k, g in grads.items():
         e = ef[k]
         g32 = g.float() + e
-        dec[k] = codec(g32)
+        dec[k] = _on_whole(codec, g32) if kind == "topk" else codec(g32)
         e.copy_(g32 - dec[k])
     return dec, ef
+
+
+def _on_whole(codec, g: torch.Tensor) -> torch.Tensor:
+    """``codec(g)`` on the whole of a DTensor ``g``, returned with ``g``'s
+    shards (a partial sum comes back reduced); a plain tensor goes
+    straight through."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(g, DTensor):
+        return codec(g)
+    mesh = g.device_mesh
+    whole = g.redistribute(mesh, [Replicate()] * mesh.ndim)
+    back = [Replicate() if p.is_partial() else p for p in g.placements]
+    return codec(whole).redistribute(mesh, back)
 
 
 def wire_bytes_factor(kind: str) -> float:

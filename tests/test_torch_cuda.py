@@ -11,7 +11,9 @@ gate, launch counting, refused launches, one DSE cell with measured
 rows on cuda, and a two-cell kernel campaign that resumes with no
 launch; and the dense model on the card: llama3-8b at full width with 2
 layers, a 2048-token prefill and 8 decode steps in bf16 on the card
-against f32 on the CPU on the same weights, and decode consistency. The
+against f32 on the CPU on the same weights, and decode consistency; and
+the plan loop's measured tier (one llama3-8b decode head, its batch cut
+to fit the card) and the §4 demo's vecmul against ``kernels/ref.py``. The
 kernels have no CPU mode, so these tests skip where torch sees no card; on a machine with an H100 and nvcc run them from the repo
 root with
 ``PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
@@ -78,7 +80,8 @@ def test_kernel_matches_plain_on_the_card(shape, dims, card):
 def test_dse_cell_measures_on_cuda(card, tmp_path):
     db = tmp_path / "db.jsonl"
     ops.reset_launch_counts()
-    rep = dse.main(["--arch", "flash_attention", "--shape", "attn_s256_gqa_bf16",
+    rep = dse.main(["--space", "kernels",
+                    "--arch", "flash_attention", "--shape", "attn_s256_gqa_bf16",
                     "--iterations", "2", "--budget", "3", "--measure-top-k", "2",
                     "--db", str(db)])
     assert ops.launch_counts()["flash_attention"] > 0
@@ -360,3 +363,40 @@ def test_train_launcher_resumes_bit_for_bit_on_the_card(tmp_path):
     b = [h["loss"] for h in json.loads((tmp_path / "b.json").read_text())]
     assert len(a) == 20 and all(math.isfinite(x) for x in a) and b == a[15:]
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_plan_head_is_measured_on_the_card_at_a_batch_that_fits(card, tmp_path):
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.core.design_space import PlanTemplate, baseline_point
+    from repro_torch.core.device import H100_SXM
+    from repro_torch.core.evaluator import Evaluator
+    from repro_torch.launch import measure
+
+    ev = Evaluator(mesh="pod", torch_device="cuda", artifact_dir=str(tmp_path),
+                   measure_runs=1)
+    cfg, cell = get_config("llama3-8b"), SHAPE_BY_NAME["decode_32k"]
+    point = baseline_point(cell, PlanTemplate(cfg, cell, ev.mesh_shape))
+    ops.reset_launch_counts()
+    dp = ev.measure("llama3-8b", "decode_32k", point, modeled_bound_s=1e-3)
+    m = dp.metrics
+    assert dp.status == "ok" and dp.fidelity == "measured", dp.reason
+    assert m["backend"] == "cuda" and m["device_name"] == torch.cuda.get_device_name(0)
+    # 34.4 GB of cache and 16 GB of weights at 8; about 85 GB at 16
+    assert m["reduced"] == {"global_batch": [128, 8]}
+    assert m["per_device_bytes_1x1"] <= measure.FIT_SHARE * H100_SXM.hbm_bytes
+    assert m["peak_bytes"] < torch.cuda.get_device_properties(0).total_memory
+    assert m["measured_s"] > 0 and m["bound_s_1x1"] > 0 and m["bound_s_modeled"] == 1e-3
+    assert not any(ops.launch_counts().values())  # torch math, no kernel of the port
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_vecmul_demo_runs_on_the_card(card, tmp_path):
+    from repro_torch.examples import dse_vecmul
+
+    ops.reset_launch_counts()
+    out = dse_vecmul.run("cuda", db_path=tmp_path / "db.jsonl", verbose=False)
+    assert out["design"]["kernel"] == "vecmul" and out["device"] == "cuda"
+    assert out["max_abs_err"] == 0.0 and ops.launch_counts()["vecmul"] == 1
+    assert out["rows"] == 6 and out["negatives"] == 2

@@ -74,7 +74,8 @@ def test_cli_runs_a_cell_on_the_cpu(tmp_path, capsys):
     assert all(d.status == "ok" and d.metrics["backend"] == "cpu" for d in measured)
     assert (tmp_path / "rep.json").exists()
     # a second run replays every evaluation and measurement from the caches
-    dse.main(["--arch", "rmsnorm", "--shape", "rms_1kx256_bf16", "--iterations", "2",
+    dse.main(["--space", "kernels",
+              "--arch", "rmsnorm", "--shape", "rms_1kx256_bf16", "--iterations", "2",
               "--budget", "3", "--measure-top-k", "2", "--db", str(db_path),
               "--device", "cpu"])
     assert "measured tier: 0 timed" in capsys.readouterr().out
@@ -82,7 +83,8 @@ def test_cli_runs_a_cell_on_the_cpu(tmp_path, capsys):
 
 def test_cpu_records_never_replay_for_the_card(tmp_path, monkeypatch):
     db_path = tmp_path / "db.jsonl"
-    dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--iterations", "1",
+    dse.main(["--space", "kernels",
+              "--arch", "vecmul", "--shape", "vec_64k_f32", "--iterations", "1",
               "--budget", "2", "--measure-top-k", "1", "--db", str(db_path),
               "--device", "cpu"])
     rows = CostDB(db_path).all()
@@ -110,7 +112,8 @@ def test_cpu_records_never_replay_for_the_card(tmp_path, monkeypatch):
 def test_injected_bad_default_becomes_an_infeasible_row(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_KERNEL_INJECT_BAD", "vecmul:block=1024")
     db_path = tmp_path / "db.jsonl"
-    rep = dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--iterations", "1",
+    rep = dse.main(["--space", "kernels",
+                    "--arch", "vecmul", "--shape", "vec_64k_f32", "--iterations", "1",
                     "--budget", "2", "--db", str(db_path), "--device", "cpu"])
     base = CostDB(db_path).all()[0]
     assert base.point["block"] == 1024 and base.status == "infeasible"
@@ -120,7 +123,8 @@ def test_injected_bad_default_becomes_an_infeasible_row(tmp_path, monkeypatch):
 
 def test_cli_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(SystemExit):
-        dse.main(["--arch", "vecmul", "--shape", "rms_1kx256_bf16", "--device", "cpu",
+        dse.main(["--space", "kernels",
+                  "--arch", "vecmul", "--shape", "rms_1kx256_bf16", "--device", "cpu",
                   "--db", str(tmp_path / "db.jsonl")])
 
 
@@ -128,5 +132,5 @@ def test_cuda_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA path runs instead")
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32",
+        dse.main(["--space", "kernels", "--arch", "vecmul", "--shape", "vec_64k_f32",
                   "--db", str(tmp_path / "db.jsonl")])

@@ -42,7 +42,13 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
                  "repro_torch.train", "repro_torch.train.optimizer",
                  "repro_torch.train.grad_compress", "repro_torch.train.step",
                  "repro_torch.train.data", "repro_torch.train.checkpoint",
-                 "repro_torch.train.trainer", "repro_torch.launch.train"):
+                 "repro_torch.train.trainer", "repro_torch.launch.train",
+                 "repro_torch.core.lora", "repro_torch.core.explorer",
+                 "repro_torch.core.llm_client", "repro_torch.core.rag",
+                 "repro_torch.core.cot", "repro_torch.core.llm_stack",
+                 "repro_torch.core.mcp", "repro_torch.core.loop",
+                 "repro_torch.search.llm_guided", "repro_torch.search.transfer",
+                 "repro_torch.examples", "repro_torch.examples.dse_vecmul"):
         assert name in out["modules"]
 
 

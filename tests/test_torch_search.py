@@ -310,8 +310,8 @@ def test_gate_args_are_validated_as_the_reference_does(factor, min_factor, tmp_p
     assert dse.validate_gate_args(factor, min_factor) == want
     if want is None:
         return
-    argv = ["--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
-            "--db", str(tmp_path / "db.jsonl")]
+    argv = ["--space", "kernels", "--arch", "vecmul", "--shape", "vec_64k_f32",
+            "--device", "cpu", "--db", str(tmp_path / "db.jsonl")]
     if factor is not None:
         argv += ["--gate-factor", str(factor)]
     if min_factor is not None:
@@ -322,24 +322,31 @@ def test_gate_args_are_validated_as_the_reference_does(factor, min_factor, tmp_p
 
 def test_unported_objective_and_strategy_are_refused(tmp_path):
     # --objective pareto is ported: the CLI runs it and reports the front
-    rep = dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
+    rep = dse.main(["--space", "kernels",
+                    "--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
                     "--iterations", "1", "--db", str(tmp_path / "db.jsonl"),
                     "--objective", "pareto"])
     assert rep["front"] and all(set(f) == {"point", "objectives", "crowding"}
                                 for f in rep["front"])
     assert "objective" in inspect.signature(search.make_strategy).parameters
     with pytest.raises(SystemExit):
-        dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
+        dse.main(["--space", "kernels",
+                  "--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
                   "--db", str(tmp_path / "db.jsonl"), "--objective", "hypervolume"])
     with pytest.raises(ValueError, match="unknown objective"):
         search.make_strategy("ensemble", objective="hypervolume")
-    # the plan-coupled strategies are not ported
+    # the plan-coupled strategies are built for the plan space (the LLM
+    # member needs a stack) and refused by the kernel space, as the
+    # reference refuses them
+    with pytest.raises(ValueError, match="needs llm_stack"):
+        search.make_strategy("llm")
     for name in ("llm", "transfer", "ensemble+transfer"):
-        with pytest.raises(ValueError, match="unknown strategy"):
-            search.make_strategy(name)
         with pytest.raises(SystemExit):
-            dse.main(["--arch", "vecmul", "--shape", "vec_64k_f32", "--device", "cpu",
-                      "--db", str(tmp_path / "db.jsonl"), "--strategy", name])
+            dse.main(["--space", "kernels", "--arch", "vecmul", "--shape", "vec_64k_f32",
+                      "--device", "cpu", "--db", str(tmp_path / "db.jsonl"),
+                      "--strategy", name])
+    assert [m.name for m in search.make_strategy("ensemble+transfer").members] == \
+        [m.name for m in jsearch.make_strategy("ensemble+transfer").members]
     assert [m.name for m in search.make_strategy("ensemble").members] == \
         ["greedy", "anneal", "evolve"]
     assert [m.name for m in search.make_strategy("ensemble", objective="pareto").members] \
@@ -357,7 +364,8 @@ def test_cli_gated_ensemble_writes_pruned_rows(tmp_path, monkeypatch, capsys):
     # the cell's eight wgmma tiles are modelled within 1.7x of each other
     # (its four FMA tiles at 3.7-15x the fastest), and at a factor of 3.0 the gate
     # prunes none of the designs six iterations propose
-    rep = dse.main(["--arch", "flash_attention", "--shape", "attn_s256_gqa_bf16",
+    rep = dse.main(["--space", "kernels",
+                    "--arch", "flash_attention", "--shape", "attn_s256_gqa_bf16",
                     "--strategy", "ensemble", "--gate-factor", "1.5",
                     "--iterations", "6", "--budget", "3", "--measure-top-k", "2",
                     "--device", "cpu", "--db", str(db_path)])

@@ -50,3 +50,39 @@ def test_weighted_train_trace_equals_an_unrolled_one(over, seq):
     assert wm["argument_bytes"] == um["argument_bytes"] and wm["alias_bytes"] == um["alias_bytes"]
 
 
+
+
+def test_a_detached_alias_keeps_its_bytes_live():
+    """The peak counts a storage once, until its last alias goes:
+    selective checkpointing and a recompute keep what they save as
+    detached aliases of the op's result, and ``_unsafe_view`` returns its
+    input's storage though its schema does not say so."""
+    import torch
+
+    from repro_torch.core.step_analysis import StepCounter
+
+    counter = StepCounter()
+    with counter:
+        a = counter.empty((1024,), torch.float32, "cpu")  # an input: not counted
+        t = a * 2
+        kept = t.detach()
+        del t
+        u = torch.ops.aten._unsafe_view(a * 3, (32, 32))
+        assert counter.live == 2 * 4096
+        del kept
+        assert counter.live == 4096
+    assert counter.peak == 2 * 4096 and u.shape == (32, 32)
+
+
+def test_selective_checkpointing_keeps_its_products_in_the_peak():
+    """``remat=dots`` keeps each layer's projections and MLP products, so
+    its step peaks above ``full`` 's and below ``none`` 's."""
+    mesh, _ = make_campaign_mesh("tiny", "cpu")
+    cfg = reduced(get_config("qwen3-0.6b"), n_layers=3)
+    cell = ShapeCell("train_4k", "train", 512, 4)
+    peaks = {}
+    for remat in ("full", "dots", "none"):
+        plan = dataclasses.replace(baseline_plan(cfg, cell), remat=remat)
+        counter, _ = dryrun.trace_cell("qwen3-0.6b", "train_4k", mesh, plan, cfg=cfg, cell=cell)
+        peaks[remat] = counter.peak
+    assert peaks["full"] < peaks["dots"] < peaks["none"], peaks
