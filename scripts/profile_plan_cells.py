@@ -1,9 +1,10 @@
 """Where a plan cell's step spends its time on the card.
 
-Builds llama3-8b's steps at full width on the one-device mesh (the
-measured tier's inputs: zeros, the global batch cut to fit one card:
-``prefill_32k`` at 1, ``decode_32k`` at 8, ``train_4k`` at 1 with int8
-Adam moments), runs one warm call, then one call under ``torch.profiler``
+Builds ``--arch`` 's steps (llama3-8b by default) at full width on the
+one-device mesh (the measured tier's inputs: zeros, the global batch cut
+to fit one card: llama3-8b's ``prefill_32k`` at 1, ``decode_32k`` at 8,
+``train_4k`` at 1 with int8 Adam moments; ``--batch`` and ``--layers``
+set another arch's cut), runs one warm call, then one call under ``torch.profiler``
 and prints the step's wall time (CUDA events), the device time summed over
 its kernels, the idle share and the kernels that take the most device
 time. For ``train_4k`` it then times the step (CUDA events, min of 2)
@@ -13,6 +14,8 @@ model's way, whose backward is one ``stack``) and by indexing each layer
 summed over the layers), and prints both.
 
     PYTHONPATH=src python3 scripts/profile_plan_cells.py [--top 12] [--shapes train_4k]
+    PYTHONPATH=src python3 scripts/profile_plan_cells.py --arch mamba2-780m \
+        --shapes prefill_32k --batch 8
 
 Needs one card with 75 GB free; about two minutes.
 """
@@ -27,7 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import SHAPE_BY_NAME, get_config
 from repro_torch.launch.campaign import make_campaign_mesh
-from repro_torch.launch.measure import zero_step
+from repro_torch.launch.measure import cut_config, zero_step
 
 CUTS = {"prefill_32k": 1, "decode_32k": 8, "train_4k": 1}
 
@@ -81,6 +84,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--shapes", default=",".join(CUTS), help="comma-separated cells")
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--batch", type=int, default=None, help="the global batch (default: CUTS)")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -88,11 +94,12 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     mesh, name = make_campaign_mesh("tiny", "cuda")
-    cfg = get_config("llama3-8b")
+    arch = args.arch
+    cfg = get_config(arch) if args.layers is None else cut_config(arch, args.layers)
     for shape in args.shapes.split(","):
-        batch = CUTS[shape]
+        batch = args.batch or CUTS[shape]
         cell = dataclasses.replace(SHAPE_BY_NAME[shape], global_batch=batch)
-        call, _ = zero_step("llama3-8b", shape, mesh, _plan(cfg, cell), cfg=cfg, cell=cell)
+        call, _ = zero_step(arch, shape, mesh, _plan(cfg, cell), cfg=cfg, cell=cell)
         call()  # warm
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -106,7 +113,8 @@ def main() -> None:
                 and e.device_type == torch.autograd.DeviceType.CUDA]
         dev_ms = sum(e.device_time_total for e in rows) / 1e3
         launches = sum(e.count for e in rows)
-        print(f"{shape} (batch {batch}, llama3-8b, {card}): step {wall_ms:.2f} ms, device "
+        print(f"{shape} (batch {batch}, {arch}, {cfg.n_layers} layers, {card}): step "
+              f"{wall_ms:.2f} ms, device "
               f"busy {dev_ms:.2f} ms over {launches} kernel launches, idle share "
               f"{max(0.0, 1 - dev_ms / wall_ms):.3f} (profiled call)", flush=True)
         for e in sorted(rows, key=lambda e: -e.device_time_total)[:args.top]:
@@ -114,7 +122,7 @@ def main() -> None:
                   f"x{e.count:<6d} {e.key[:110]}", flush=True)
         del call, prof
         torch.cuda.empty_cache()
-        if shape == "train_4k":
+        if shape == "train_4k" and arch == "llama3-8b":
             _layer_take(mesh, cfg, cell, card)
 
 

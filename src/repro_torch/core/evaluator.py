@@ -301,8 +301,9 @@ class Evaluator:
                                        cfg=cfg, cell=cut)
         if torch.device(self.torch_device).type == "cuda":
             torch.cuda.empty_cache()
-        rec.update(reduced=({"global_batch": [cell.global_batch, cut.global_batch]}
-                            if cut.global_batch != cell.global_batch else {}),
+        rec.update(reduced={**rec.get("reduced", {}),
+                            **({"global_batch": [cell.global_batch, cut.global_batch]}
+                               if cut.global_batch != cell.global_batch else {})},
                    bound_s_1x1=fit["bound_s"],
                    per_device_bytes_1x1=fit["per_device_bytes"],
                    fit_traced=fit["traced"])

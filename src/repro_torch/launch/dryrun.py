@@ -67,8 +67,7 @@ def build_cell(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=No
     ``placements`` mirrors it with the plan's placements on ``mesh``
     (``None`` on a one-device mesh). ``cfg``/``cell`` override the registry
     lookup (a reduced config, a cut batch); ``ctx`` overrides the step's
-    plan hook (the dry run's counts its loops). Raises
-    ``NotImplementedError`` for families not ported yet.
+    plan hook (the dry run's counts its loops).
     """
     cfg = cfg if cfg is not None else get_config(arch)
     cell = cell if cell is not None else SHAPE_BY_NAME[shape_name]
@@ -169,7 +168,9 @@ def trace_cell(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=No
                 outs = [new_state, metrics]
             else:
                 logits, new_cache = step(args["params"], args["batch"], args["cache"])
-                alias = _local_bytes([args["cache"]["k"], args["cache"]["v"]])
+                # the whole cache: the step updates it in place (the
+                # reference donates it and its outputs alias it)
+                alias = _local_bytes(args["cache"])
                 outs = [logits, new_cache]
         out_bytes = _local_bytes(outs)
         fresh_out = out_bytes - alias
@@ -184,10 +185,8 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str, plan=None,
     bytes and roofline terms, and write the JSON artifact.
 
     Never raises — an unsupported cell returns ``status="skipped"``, and
-    any exception (a family or cell kind not ported yet raises
-    ``NotImplementedError``, naming the slice that will port it) becomes a
-    ``status="error"`` record with the truncated traceback, which callers
-    leave retryable and uncached."""
+    any exception becomes a ``status="error"`` record with the truncated
+    traceback, which callers leave retryable and uncached."""
     t0 = time.time()
     cfg = cfg if cfg is not None else get_config(arch)
     cell = cell if cell is not None else SHAPE_BY_NAME[shape_name]

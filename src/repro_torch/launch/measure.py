@@ -14,8 +14,10 @@ one-device mesh (``tiny1x1``), with every input (parameters, batch, cache;
 a train cell's state) as zeros on the mesh's device: the time of a dense
 step does not depend on the data. A train cell's step is a whole one,
 forward, backward and AdamW, fed its own new state. A cell too large for one card is measured with a cut global
-batch (``cell=``; the CLI's ``--batch``). Neither function raises: a failed run is a
-``status="error"`` record.
+batch (``cell=``; the CLI's ``--batch``), and a model too large for it with
+its depth cut (``cfg=``, the registry's config with fewer layers; the
+record lists the cut under ``reduced``, ``{"n_layers": [full, cut]}``).
+Neither function raises: a failed run is a ``status="error"`` record.
 
     PYTHONPATH=src python -m repro_torch.launch.measure --arch llama3-8b \
         --shape decode_32k --batch 8 --device cuda
@@ -61,6 +63,21 @@ def _zeros(tree, dev):
     if isinstance(tree, dict):
         return {k: _zeros(v, dev) for k, v in tree.items()}
     return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
+
+
+def depth_cut(arch: str, cfg) -> Dict[str, Any]:
+    """``{"n_layers": [full, cut]}`` (and ``n_enc_layers``) when ``cfg`` is
+    the registry's ``arch`` with fewer layers, else ``{}``."""
+    from repro_torch.configs import ARCH_NAMES, get_config
+
+    if arch not in ARCH_NAMES:
+        return {}
+    full = get_config(arch)
+    keys = ("n_layers", "n_enc_layers")
+    if dataclasses.replace(cfg, **{k: getattr(full, k) for k in keys}) != full:
+        return {}
+    return {k: [getattr(full, k), getattr(cfg, k)] for k in keys
+            if getattr(cfg, k) != getattr(full, k)}
 
 
 def zero_step(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=None):
@@ -112,6 +129,8 @@ def measure_cell(arch: str, shape_name: str, mesh, mesh_name: str,
     rec: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                            "mesh": mesh_name, "fidelity": "measured",
                            "n": runs, "measured_at": round(t0, 3)}
+    if cfg is not None:
+        rec["reduced"] = depth_cut(arch, cfg)
     try:
         dev = torch.device(mesh.device_type)
         call, skip = zero_step(arch, shape_name, mesh, plan, cfg=cfg, cell=cell)
@@ -151,136 +170,306 @@ def measure_cell(arch: str, shape_name: str, mesh, mesh_name: str,
 FIT_SHARE = 0.9
 
 
+def _largest_fitting(candidates, nbytes, limit: float):
+    """The largest of ``candidates`` (ascending, their modelled bytes rising
+    with them) whose ``nbytes(c)`` is at most ``limit``, by bisection:
+    ``(candidate, None)``; ``(None, None)`` when even the first does not
+    fit; ``(None, record)`` when ``nbytes`` returned a failed dry run's
+    record instead of bytes."""
+    lo, hi = -1, len(candidates)  # candidates[lo] fits, candidates[hi] does not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        m = nbytes(candidates[mid])
+        if isinstance(m, dict):
+            return None, m
+        if m <= limit:
+            lo = mid
+        else:
+            hi = mid
+    return (candidates[lo] if lo >= 0 else None), None
+
+
+def _fit_on_one_card(candidates, dry_run, what: str) -> Dict[str, Any]:
+    """The largest of ``candidates`` whose one-device dry run
+    (``dry_run(c)``, a ``dryrun.run_cell`` record) models at most
+    ``FIT_SHARE`` of the H100's memory per device: ``status`` ``ok`` with
+    ``value``, that dry run's ``per_device_bytes``, ``bound_s`` and
+    ``dominant``, and ``traced`` (candidate -> modelled bytes); ``skipped``
+    with the reason when even the first candidate does not fit; or the
+    failed dry run's status."""
+    from repro_torch.core.device import H100_SXM
+
+    limit = FIT_SHARE * H100_SXM.hbm_bytes
+    recs: Dict[int, Dict[str, Any]] = {}
+
+    def nbytes(c: int):
+        """The modelled bytes per device at ``c``, or the failed record."""
+        if c not in recs:
+            recs[c] = dry_run(c)
+        rec = recs[c]
+        return rec["memory"]["per_device_bytes"] if rec["status"] == "ok" else rec
+
+    best, bad = _largest_fitting(candidates, nbytes, limit)
+    if bad is not None:
+        return {k: bad[k] for k in ("status", "reason", "error") if k in bad}
+    if best is None:
+        m0 = nbytes(candidates[0])
+        return {"status": "skipped",
+                "reason": (f"does not fit one card at {what} {candidates[0]}: "
+                           f"{m0 / 1e9:.1f} GB modelled > {limit / 1e9:.1f} GB "
+                           f"({FIT_SHARE:.0%} of {H100_SXM.hbm_bytes / 1e9:.0f} GB)")}
+    rec = recs[best]
+    return {"status": "ok", "value": best, "per_device_bytes": rec["memory"]["per_device_bytes"],
+            "bound_s": rec["roofline"]["bound_s"], "dominant": rec["roofline"]["dominant"],
+            "traced": {str(k): (r["memory"]["per_device_bytes"] if r["status"] == "ok"
+                                else None) for k, r in sorted(recs.items())}}
+
+
 def one_device_batch(arch: str, shape_name: str, plan, *, cfg, cell,
                      artifact_dir: Path, run_name: str) -> Dict[str, Any]:
     """The global batch at which ``plan`` runs the cell on one card: the
-    largest power-of-two multiple of ``plan.microbatches`` (or the cell's
-    own batch, when that fits) whose one-device dry run
+    largest of the power-of-two multiples of ``plan.microbatches`` up to
+    the cell's own batch, and that batch itself, whose one-device dry run
     (``dryrun.run_cell`` on the CPU's 1x1 mesh: fake tensors, no device)
-    models at most ``FIT_SHARE`` of the H100's memory per device.
-
-    A dense cell's bytes are affine in the batch, so the dry runs at the
-    first two batches fix the line and one at the chosen batch confirms
-    it (halving while it does not). Returns ``status`` ``ok`` with
-    ``batch``, that dry run's ``per_device_bytes``, ``bound_s`` and
-    ``dominant``, and ``traced`` (batch -> modelled bytes); ``skipped``
-    with the reason when even the first batch does not fit (or the cell is
-    unsupported); or ``error`` when a dry run failed."""
-    from repro_torch.core.device import H100_SXM
+    models at most ``FIT_SHARE`` of the H100's memory per device
+    (``_fit_on_one_card``, its ``value`` returned as ``batch``)."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_campaign_mesh
-
-    limit = FIT_SHARE * H100_SXM.hbm_bytes
-    mesh, _ = make_campaign_mesh("tiny", "cpu")
-    recs: Dict[int, Dict[str, Any]] = {}
-
-    def nbytes(b: int):
-        """The modelled bytes per device at batch ``b``, or the failed record."""
-        if b not in recs:
-            recs[b] = dryrun.run_cell(arch, shape_name, mesh, f"{run_name}-b{b}", plan,
-                                      artifact_dir, cfg=cfg,
-                                      cell=dataclasses.replace(cell, global_batch=b))
-        rec = recs[b]
-        return rec["memory"]["per_device_bytes"] if rec["status"] == "ok" else rec
 
     full = cell.global_batch
     b0 = max(int(plan.microbatches), 1)
     if b0 > full:
         return {"status": "skipped", "reason": f"{b0} microbatches exceed the cell's "
                                                f"global batch {full}"}
-    m0 = nbytes(b0)
-    if isinstance(m0, dict):
-        return {k: m0[k] for k in ("status", "reason", "error") if k in m0}
-    if m0 > limit:
-        return {"status": "skipped",
-                "reason": (f"does not fit one card at global batch {b0}: "
-                           f"{m0 / 1e9:.1f} GB modelled > {limit / 1e9:.1f} GB "
-                           f"({FIT_SHARE:.0%} of {H100_SXM.hbm_bytes / 1e9:.0f} GB)")}
-    b = b0
-    if 2 * b0 <= full:
-        m1 = nbytes(2 * b0)
-        if isinstance(m1, dict):
-            return {k: m1[k] for k in ("status", "reason", "error") if k in m1}
-        slope = (m1 - m0) / b0
-        while 2 * b <= full and m0 + slope * (2 * b - b0) <= limit:
-            b *= 2
-        if b != full and m0 + slope * (full - b0) <= limit:
-            b = full
-    while True:
-        m = nbytes(b)
-        if isinstance(m, dict):
-            return {k: m[k] for k in ("status", "reason", "error") if k in m}
-        if m <= limit or b == b0:
-            break
-        b = max(b // 2, b0)
-    rec = recs[b]
-    return {"status": "ok", "batch": b, "per_device_bytes": m,
-            "bound_s": rec["roofline"]["bound_s"], "dominant": rec["roofline"]["dominant"],
-            "traced": {str(k): (r["memory"]["per_device_bytes"] if r["status"] == "ok"
-                                else None) for k, r in sorted(recs.items())}}
+    mesh, _ = make_campaign_mesh("tiny", "cpu")
+    batches = sorted({b0 << k for k in range(full.bit_length()) if b0 << k <= full} | {full})
+    fit = _fit_on_one_card(batches, lambda b: dryrun.run_cell(
+        arch, shape_name, mesh, f"{run_name}-b{b}", plan, artifact_dir, cfg=cfg,
+        cell=dataclasses.replace(cell, global_batch=b)), "global batch")
+    if fit["status"] == "ok":
+        fit["batch"] = fit.pop("value")
+    return fit
 
 
-#: bf16 on the card against f32 on the CPU (``check_against_cpu``), as a
-#: share of the largest |value| of the f32 result. bf16 alone departs from
-#: f32 by about this much at the check's size: ``scripts/bf16_gap.py``
-#: gives the reference's own gap and the port's.
+def one_device_depth(arch: str, shape_name: str, *, artifact_dir: Path,
+                     run_name: str) -> Dict[str, Any]:
+    """The deepest cut of ``arch`` at full width (``cut_config``, in whole
+    units: a layer, or a hybrid's group) whose one-device dry run of the
+    cell at global batch 1 under the baseline plan models at most
+    ``FIT_SHARE`` of the H100's memory per device (``_fit_on_one_card``,
+    its ``value`` returned as ``n_layers``)."""
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_campaign_mesh
+
+    full = get_config(arch)
+    unit = full.hybrid_attn_every or 1
+    cell = dataclasses.replace(SHAPE_BY_NAME[shape_name], global_batch=1)
+    mesh, _ = make_campaign_mesh("tiny", "cpu")
+    fit = _fit_on_one_card(list(range(unit, full.n_layers + 1, unit)), lambda n: dryrun.run_cell(
+        arch, shape_name, mesh, f"{run_name}-l{n}", None, artifact_dir,
+        cfg=cut_config(arch, n), cell=cell), "depth")
+    if fit["status"] == "ok":
+        fit["n_layers"] = fit.pop("value")
+    return fit
+
+
+#: bf16 on the card against f32 on the CPU, as a share of the largest
+#: |value| of the f32 result: the model check's logits and cache
+#: (``check_against_cpu``), the train check's loss and gradient norm. bf16
+#: alone departs from f32 by about this much at the check's size
+#: (``scripts/bf16_gap.py``: llama3-8b's reference 1.933%, the port 1.829%)
 MODEL_REL = 2e-2
+#: ``check_against_cpu``: the device's f32 run against the CPU's (TF32
+#: off): summation order alone
+F32_REL = 1e-3
+#: ``check_against_cpu``: a model whose bf16 run on the device reads past
+#: ``MODEL_REL`` is held to this multiple of the port's own bf16 gap on the
+#: CPU instead (its bf16 run against its f32, same weights and inputs,
+#: measured in the check): bf16 rounding alone reads about 1x of it
+#: (0.83-1.09x on an H100, PERF.md §6), a fault of the device's bf16 path
+#: more
+BF16_GAP_FACTOR = 1.25
+
+
+def cut_config(arch: str, n_layers: int):
+    """The registry's ``arch`` at full width with ``n_layers`` layers (an
+    encoder-decoder's encoder cut to the same; a hybrid's ``n_layers`` must
+    hold whole groups of ``hybrid_attn_every`` Mamba layers, each with its
+    use of the shared block)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.hybrid_attn_every and n_layers % cfg.hybrid_attn_every:
+        raise ValueError(f"{arch} cuts to whole groups of {cfg.hybrid_attn_every} layers, "
+                         f"not {n_layers}")
+    cut = {"n_layers": n_layers}
+    if cfg.enc_dec:
+        cut["n_enc_layers"] = n_layers
+    return dataclasses.replace(cfg, **cut)
+
+
+def model_inputs(cfg, tokens: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    """One sequence's CPU inputs: ``tokens`` int32 tokens, and a frontend
+    stub's embeddings [1, F, 1024] (N(0, 1) f32) for vlm and audio."""
+    from repro_torch.models.transformer import FRONTEND_DIM
+
+    out = {"tokens": torch.randint(0, cfg.vocab, (1, tokens), generator=gen,
+                                   dtype=torch.int32)}
+    if cfg.frontend:
+        out["frontend"] = torch.randn((1, cfg.frontend_len, FRONTEND_DIM), generator=gen)
+    return out
+
+
+def _cache_leaves(cache, pre=""):
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v, f"{pre}{k}.")
+        else:
+            yield f"{pre}{k}", v
+
+
+def _serve_run(cfg, params, batch, tokens: int, steps: int, device):
+    """A ``tokens``-token prefill then ``steps`` decode steps on ``device``:
+    (each step's logits as f32 CPU tensors, the final cache, the MoE
+    routing of every call)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import record_routing
+
+    prompt = {k: (v[:, :tokens] if k == "tokens" else v).to(device) for k, v in batch.items()}
+    pre = cfg.frontend_len if cfg.family == "vlm" else 0
+    out = []
+    with torch.no_grad(), record_routing() as routes:
+        lg, cache = M.prefill_fn(cfg, params, prompt,
+                                 M.init_cache(cfg, 1, pre + tokens + steps, device=device))
+        out.append(lg.float().cpu())
+        for i in range(steps):
+            nxt = batch["tokens"][:, tokens + i:tokens + i + 1].to(device)
+            lg, cache = M.decode_fn(cfg, params, {"tokens": nxt}, cache)
+            out.append(lg.float().cpu())
+    return out, cache, list(routes)
+
+
+def _run_errors(want, got) -> Dict[str, Any]:
+    """Each step's max |logit error| over max |logit| of ``want`` (a
+    ``_serve_run`` result; the prefill's first), each cache leaf's, and the
+    worst of them."""
+    def rel(w, g):
+        w, g = w.float().cpu(), g.float().cpu()
+        return float((w - g).abs().max() / w.abs().max())
+
+    logits = [rel(w, g) for w, g in zip(want[0], got[0])]
+    gleaves = dict(_cache_leaves(got[1]))
+    cache = {k: rel(v, gleaves[k]) for k, v in _cache_leaves(want[1]) if not k.endswith("len")}
+    return {"logits": logits, "cache": cache, "worst": max(logits + list(cache.values()))}
 
 
 def check_against_cpu(arch: str = "llama3-8b", *, n_layers: int = 2, tokens: int = 2048,
                       steps: int = 8, device: str = "cuda", seed: int = 0) -> Dict[str, Any]:
-    """The dense model at full width, cut to ``n_layers``, with random
-    weights from ``seed``: a ``tokens``-token prefill and ``steps`` decode
-    steps in the config's dtype on ``device`` and in f32 on the CPU, on the
-    same weights. Returns each step's max |logit error| / max |logit|
-    (``logits``: the prefill's first), the cache's (``cache``), whether the
-    device's logits were finite, both caches' lengths, and ``ok``: every
-    error finite and below ``MODEL_REL``."""
-    from repro_torch.configs import get_config
+    """The model at full width, cut to ``n_layers`` (``cut_config``), with
+    random weights from ``seed`` (a LoRA's ``b`` halves, zero at init,
+    random too, so that its path counts): a ``tokens``-token prefill (after
+    a frontend's rows, or beside an encoder's frames) and ``steps`` decode
+    steps, run on the same weights and inputs in the config's dtype and in
+    f32 on ``device`` (TF32 off) and in f32 on the CPU. An error is max
+    |error| over the CPU's f32 result's max |value|, for each step's logits
+    and each cache leaf.
+
+    Held: ``f32``, the device's f32 run, within ``F32_REL``; ``bf16``, the
+    device's run in the config's dtype, within ``MODEL_REL``, or, where it
+    reads past that, within ``BF16_GAP_FACTOR`` times ``gap``, the worst
+    error of a fourth run, the CPU's own in that dtype. An MoE model's bf16
+    run may send a near-tied token to another expert, which moves its
+    logits past any rounding gap: its device run is held finite, ``bf16``
+    gives the share of its (token, expert) top-k choices that the CPU's f32
+    run did not make (``topk_differ``, of ``topk_pairs``). Returns ``f32``,
+    ``bf16`` and ``gap`` where run (each ``{"logits", "cache", "worst"}``),
+    ``limit`` (``{"f32", "bf16"}``), ``finite`` (every device run), the
+    caches' lengths (device, CPU), ``dtype`` and ``ok``."""
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = cut_config(arch, n_layers)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    params, _ = M.init_params(cfg, seed=seed, device=device)
-    cpu = {k: v.float().cpu() for k, v in params.items()}
     gen = torch.Generator().manual_seed(seed)
-    tok = torch.randint(0, cfg.vocab, (1, tokens + steps), generator=gen, dtype=torch.int32)
-
-    def rel(want, got):
-        want, got = want.float().cpu(), got.float().cpu()
-        return float((want - got).abs().max() / want.abs().max())
-
-    errs, finite = [], True
-    with torch.no_grad():
-        dl, dc = M.prefill_fn(cfg, params, {"tokens": tok[:, :tokens].to(device)},
-                              M.init_cache(cfg, 1, tokens + steps, device=device))
-        cl, cc = M.prefill_fn(cfg32, cpu, {"tokens": tok[:, :tokens]},
-                              M.init_cache(cfg32, 1, tokens + steps))
-        errs.append(rel(cl, dl))
-        finite = finite and bool(torch.isfinite(dl.float()).all())
-        for i in range(steps):
-            nxt = tok[:, tokens + i:tokens + i + 1]
-            dl, dc = M.decode_fn(cfg, params, {"tokens": nxt.to(device)}, dc)
-            cl, cc = M.decode_fn(cfg32, cpu, {"tokens": nxt}, cc)
-            errs.append(rel(cl, dl))
-            finite = finite and bool(torch.isfinite(dl.float()).all())
-    cache = max(rel(cc[k], dc[k]) for k in ("k", "v"))
-    ok = finite and all(e < MODEL_REL for e in errs + [cache])
-    return {"logits": errs, "cache": cache, "finite": finite, "ok": ok,
-            "len": (dc["len"].tolist(), cc["len"].tolist()), "limit": MODEL_REL}
+    batch = model_inputs(cfg, tokens + steps, gen)
+    params, _ = M.init_params(cfg, seed=seed, device=device)
+    for k, v in params.items():
+        if k.endswith("_lora_b"):
+            v.copy_(0.02 * torch.randn(v.shape, generator=gen))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dev_lo = _serve_run(cfg, params, batch, tokens, steps, device)
+        dev32 = _serve_run(cfg32, {k: v.float() for k, v in params.items()}, batch, tokens,
+                           steps, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu_lo = {k: v.cpu() for k, v in params.items()}
+    del params
+    cpu32 = _serve_run(cfg32, {k: v.float() for k, v in cpu_lo.items()}, batch, tokens,
+                       steps, "cpu")
+    finite = all(bool(torch.isfinite(x).all()) for run in (dev_lo, dev32) for x in run[0])
+    out: Dict[str, Any] = {"f32": _run_errors(cpu32, dev32), "finite": finite,
+                           "dtype": cfg.dtype}
+    limit = {"f32": F32_REL}
+    if cfg.moe is not None:
+        pairs = diff = 0
+        for a, b in zip(cpu32[2], dev_lo[2]):
+            for ta, tb in zip(a.tolist(), b.tolist()):
+                pairs += len(ta)
+                diff += len(set(ta) - set(tb))
+        out["bf16"] = {"topk_differ": diff / max(pairs, 1), "topk_pairs": pairs}
+        bf16_ok = True
+    else:
+        out["bf16"] = _run_errors(cpu32, dev_lo)
+        limit["bf16"] = MODEL_REL
+        if out["bf16"]["worst"] >= MODEL_REL:
+            out["gap"] = _run_errors(cpu32, _serve_run(cfg, cpu_lo, batch, tokens, steps, "cpu"))
+            limit["bf16"] = max(MODEL_REL, BF16_GAP_FACTOR * out["gap"]["worst"])
+        bf16_ok = out["bf16"]["worst"] < limit["bf16"]
+    dleaves, cleaves = dict(_cache_leaves(dev_lo[1])), dict(_cache_leaves(cpu32[1]))
+    out.update(limit=limit, len=((dleaves["len"].tolist(), cleaves["len"].tolist())
+                                 if "len" in dleaves else None),
+               ok=finite and out["f32"]["worst"] < F32_REL and bf16_ok)
+    return out
 
 
 #: the train check's limit on each leaf: max |x(card) - x(CPU)| over max
-#: |x(CPU)| for every gradient leaf, every dequantised int8 moment and
-#: every new param. A leaf's gradient zeroed reads 1 and its sign flipped
-#: reads 2; bf16 alone read at most 0.035 on an H100 at the check's size
-#: (PERF.md §6).
+#: |x(CPU)| for every gradient leaf and every dequantised int8 moment, and
+#: for every new param the same over its step's update (beyond the
+#: rounding to the param's dtype). A leaf's gradient zeroed reads 1 and its
+#: sign flipped reads 2, an update at twice the learning rate 1; bf16's
+#: gradients read at most 0.035 on an H100 at the check's size (PERF.md §6).
 TRAIN_LEAF_REL = 0.1
+
+
+def _leaf_rel(want: torch.Tensor, got: torch.Tensor) -> float:
+    """max |got - want| / max |want|: 0 where both are all zero (an int8
+    moment of a leaf whose gradients are all below its quantum), infinite
+    where only ``want`` is."""
+    if not want.numel():
+        return 0.0
+    num, den = float((want - got).abs().max()), float(want.abs().max())
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def _update_rel(old: torch.Tensor, want: torch.Tensor, got: torch.Tensor) -> float:
+    """A step's update, ``got - old`` (``got`` rounded to its dtype) against
+    ``want - old`` (``want`` in f32): max |error| less half a unit in the
+    last place of ``got`` 's dtype at ``want``, over max |want - old|."""
+    if not want.numel():
+        return 0.0
+    _, e = torch.frexp(want)
+    half_ulp = torch.finfo(got.dtype).eps * torch.ldexp(torch.ones_like(want), e - 2)
+    half_ulp.masked_fill_(want == 0, 0)
+    num = float(((got.float() - want).abs() - half_ulp).clamp_(min=0).max())
+    den = float((want - old).abs().max())
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
 
 
 def check_train_against_cpu(cfg, *, n_layers: int = 2, tokens: int = 2048,
                             device: str = "cuda", seed: int = 0) -> Dict[str, Any]:
-    """One train step of the dense model ``cfg`` (an ``ArchConfig``) cut to
+    """One train step of the model ``cfg`` (an ``ArchConfig``) cut to
     ``n_layers``, on one ``tokens``-token sequence, with random weights from
     ``seed``: in the config's dtype on ``device`` and in f32 on the CPU, on
     the same weights and batch, under the plan point the measured tier
@@ -289,14 +478,20 @@ def check_train_against_cpu(cfg, *, n_layers: int = 2, tokens: int = 2048,
     (warmup 1, so step 1 runs at the peak learning rate), so that the
     gradients can be compared too.
 
+    The CPU computes its own loss and gradient, and runs AdamW on the
+    device's gradient from the same state: step 1 moves each entry by about
+    -lr * sign(g), so an update from the CPU's own gradient, whose sign can
+    differ where it lies within rounding of zero, would not compare.
+
     Returns the loss's and the gradient norm's relative errors (``loss``,
-    ``grad_norm``) and both sides' values; for each leaf of the gradients,
-    of the moments m and v and of the new params, max |error| over the CPU
-    leaf's max |value| (``leaves``: ``{"grad", "m", "v", "param"}`` ->
-    ``{leaf: error}``) and the worst of each (``worst``: ``(leaf,
-    error)``); whether the device's values were finite; and ``ok``: every
-    error finite, the two scalars below ``MODEL_REL`` and each leaf below
-    ``TRAIN_LEAF_REL``."""
+    ``grad_norm``) and both sides' values; for each gradient leaf max
+    |error| over the CPU leaf's max |value|; for each leaf of the moments m
+    and v the same against the CPU's AdamW, and for each new param its
+    update against that AdamW's (``_update_rel``); these as ``leaves``
+    (``{"grad", "m", "v", "param"}`` -> ``{leaf: error}``) and the worst of
+    each (``worst``: ``(leaf, error)``); whether the device's values were
+    finite; and ``ok``: every error finite, the two scalars below
+    ``MODEL_REL`` and each leaf below ``TRAIN_LEAF_REL``."""
     from repro_torch.models import model as M
     from repro_torch.sharding.plan import ShardingPlan
     from repro_torch.train import optimizer as opt_mod
@@ -307,21 +502,33 @@ def check_train_against_cpu(cfg, *, n_layers: int = 2, tokens: int = 2048,
     plan = ShardingPlan(rules={}, remat="full", opt_int8=True, zero1=False)
     opt_cfg = opt_mod.AdamWConfig(warmup_steps=1)
     state, _ = step_mod.init_train_state(cfg, plan, seed=seed, device=device)
-    cpu = step_mod._new_state({k: v.float().cpu() for k, v in state["params"].items()}, plan)
+    # a copy: the device side updates its params in place
+    init = {k: v.float().cpu().clone() for k, v in state["params"].items()}
     gen = torch.Generator().manual_seed(seed)
     tok = torch.randint(0, cfg.vocab, (2, 1, tokens), generator=gen, dtype=torch.int32)
     batch = {"tokens": tok[0], "targets": tok[1]}
 
-    def step(c, st, b):
-        leaves = {k: p.detach().requires_grad_() for k, p in st["params"].items()}
+    def grads_of(c, params, b):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
         with torch.enable_grad():
             loss, _ = M.loss_fn(c, leaves, b, remat=plan.remat)
             grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        _, _, om = opt_mod.adamw_update(opt_cfg, st["params"], grads, st["opt"])
-        return {"loss": float(loss.detach()), "grad_norm": float(om["grad_norm"])}, grads
+        return float(loss.detach()), grads
 
-    dm, dgrads = step(cfg, state, {k: v.to(device) for k, v in batch.items()})
-    cm, cgrads = step(cfg32, cpu, batch)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # an f32 config runs in full f32
+    try:
+        dloss, dgrads = grads_of(cfg, state["params"],
+                                 {k: v.to(device) for k, v in batch.items()})
+        _, _, om = opt_mod.adamw_update(opt_cfg, state["params"], dgrads, state["opt"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    dm = {"loss": dloss, "grad_norm": float(om["grad_norm"])}
+    cpu = step_mod._new_state({k: v.clone() for k, v in init.items()}, plan)
+    opt_mod.adamw_update(opt_cfg, cpu["params"], {k: g.float().cpu() for k, g in dgrads.items()},
+                         cpu["opt"])
+    closs, cgrads = grads_of(cfg32, init, batch)
+    cm = {"loss": closs, "grad_norm": float(opt_mod.grad_norm(cgrads))}
     out: Dict[str, Any] = {"finite": True, "limit": MODEL_REL, "leaf_limit": TRAIN_LEAF_REL}
     for k in ("loss", "grad_norm"):
         d, c = dm[k], cm[k]
@@ -329,21 +536,27 @@ def check_train_against_cpu(cfg, *, n_layers: int = 2, tokens: int = 2048,
         out[f"{k}_device"], out[f"{k}_cpu"] = d, c
         out["finite"] = out["finite"] and math.isfinite(d)
 
+    dev = torch.device(device)
+
     def mom(st, part, k):
         q = st["opt"][part][k]
-        return opt_mod._dq8(q["q"], q["s"], q["q"].shape)
+        return opt_mod._dq8(q["q"].to(dev), q["s"].to(dev), q["q"].shape)
 
-    pairs = {"grad": lambda st, g, k: g[k],
-             "m": lambda st, g, k: mom(st, "m", k),
-             "v": lambda st, g, k: mom(st, "v", k),
-             "param": lambda st, g, k: st["params"][k]}
     out["leaves"], out["worst"] = {}, {}
-    for part, get in pairs.items():
+    for part in ("grad", "m", "v", "param"):
         errs = {}
         for k in cgrads:
-            want, got = get(cpu, cgrads, k), get(state, dgrads, k).float().cpu()
+            # both sides compared on the device (the CPU side's leaf moved
+            # there): the passes over a full-width leaf are the card's
+            if part == "param":
+                got = state["params"][k]
+                out["finite"] = out["finite"] and bool(torch.isfinite(got).all())
+                errs[k] = _update_rel(init[k].to(dev), cpu["params"][k].to(dev), got)
+                continue
+            want = (cgrads[k] if part == "grad" else mom(cpu, part, k)).to(dev)
+            got = (dgrads[k] if part == "grad" else mom(state, part, k)).float()
             out["finite"] = out["finite"] and bool(torch.isfinite(got).all())
-            errs[k] = float((want - got).abs().max() / want.abs().max())
+            errs[k] = _leaf_rel(want, got)
         out["leaves"][part] = errs
         out["worst"][part] = max(errs.items(), key=lambda kv: kv[1])
     out["ok"] = (out["finite"] and all(out[k] < MODEL_REL for k in ("loss", "grad_norm"))
@@ -457,7 +670,8 @@ def main(argv=None) -> None:
     cut = dataclasses.replace(cell, global_batch=args.batch) if args.batch else cell
     rec = measure_cell(args.arch, args.shape, mesh, mesh_name, runs=args.runs, cell=cut)
     if cut is not cell:
-        rec["reduced"] = {"global_batch": [cell.global_batch, cut.global_batch]}
+        rec["reduced"] = {**rec.get("reduced", {}),
+                          "global_batch": [cell.global_batch, cut.global_batch]}
     print(json.dumps({k: v for k, v in rec.items() if k != "trace"},
                      indent=1, default=str))
     if args.out:

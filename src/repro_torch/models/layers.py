@@ -60,11 +60,15 @@ class ParamInit:
         v = torch.randn(shape, generator=self.gen, device=self.device, dtype=torch.float32)
         self._put(name, (scale * v).to(self.dtype), axes)
 
-    def ones(self, name: str, shape, axes: Axes) -> None:
-        self._put(name, torch.ones(shape, device=self.device, dtype=self.dtype), axes)
+    def ones(self, name: str, shape, axes: Axes, dtype: Optional[torch.dtype] = None) -> None:
+        self._put(name, torch.ones(shape, device=self.device, dtype=dtype or self.dtype), axes)
 
-    def zeros(self, name: str, shape, axes: Axes) -> None:
-        self._put(name, torch.zeros(shape, device=self.device, dtype=self.dtype), axes)
+    def zeros(self, name: str, shape, axes: Axes, dtype: Optional[torch.dtype] = None) -> None:
+        self._put(name, torch.zeros(shape, device=self.device, dtype=dtype or self.dtype), axes)
+
+    def value(self, name: str, v: torch.Tensor, axes: Axes) -> None:
+        """A parameter of given values (in their own dtype)."""
+        self._put(name, v.to(self.device), axes)
 
 
 # ---------------------------------------------------------------------------
@@ -405,7 +409,7 @@ def attend(ctx, fn, q, k, v, *vecs, seq_local: bool = False):
 def init_attention(init: ParamInit, prefix: str, cfg, lora_rank: int = 0,
                    stack: Tuple[int, ...] = (), stack_axes: Axes = ()) -> None:
     """Params for one attention block (optionally with LoRA adapter slots,
-    which the dense path builds but does not apply)."""
+    which ``attention_block`` applies with ``use_lora``)."""
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim()
     L, La = stack, stack_axes
     init.normal(f"{prefix}.wq", (*L, d, h, dh), (*La, "embed", "heads", "head_dim"))
@@ -506,6 +510,25 @@ def gathered(w, dim: int):
                           [Replicate() if p.is_shard(d) else p for p in w.placements])
 
 
+def rows_matmul(ctx, x: torch.Tensor, w: torch.Tensor, *more: torch.Tensor) -> torch.Tensor:
+    """``cat([x, *more], -1) @ w`` for x [b, s, k] whose rows may be sharded
+    over batch and sequence, which stay where they are (as GSPMD keeps
+    them): on a mesh it runs on the local rows with ``w`` whole, since
+    DTensor cannot multiply the flattened pair of batch and sequence shards
+    (``more`` must be placed as ``x``; a last dim sharded is gathered)."""
+    mesh = getattr(ctx, "mesh", None)
+    from torch.distributed.tensor import DTensor
+
+    if not (is_sharded(mesh) and isinstance(x, DTensor)):
+        return (torch.cat([x, *more], dim=-1) if more else x) @ w
+    from torch.distributed.tensor import Replicate
+
+    xp = tuple(Replicate() if p.is_shard(x.ndim - 1) else p for p in x.placements)
+    rep = (Replicate(),) * mesh.ndim
+    return local_call(lambda w_, *xs: (torch.cat(xs, dim=-1) if len(xs) > 1 else xs[0]) @ w_,
+                      mesh, [(w, rep)] + [(t, xp) for t in (x, *more)], [xp])
+
+
 def _project_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [b, s, d] by w [d, h, k] -> [b, s, h, k]. einsum flattens the
     weight's (h, k) pair; DTensor cannot carry a shard of the trailing k
@@ -528,17 +551,54 @@ def _project_out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", o, w)
 
 
+def _lora_delta(x: torch.Tensor, p, nm: str, use_lora: bool, like=None):
+    """``(x @ a) @ b`` of the LoRA adapter pair ``{nm}_lora_a``/``_b`` in
+    ``p`` (the reference's ``_proj_lora``), or ``None`` without one. On a
+    mesh, ``b`` 's output columns take the shards of dim 2 of ``like`` (the
+    projection the delta is added to: the MLP's hidden width), so each
+    shard computes its own part of the delta only, as GSPMD places it."""
+    if not use_lora or f"{nm}_lora_a" not in p:
+        return None
+    b = p[f"{nm}_lora_b"]
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(like, DTensor) and isinstance(b, DTensor):
+        b = b.redistribute(b.device_mesh, [Shard(1) if q.is_shard(2) else r
+                                           for q, r in zip(like.placements, b.placements)])
+    return (x @ p[f"{nm}_lora_a"]) @ b
+
+
+def _project_in_lora(x, p, nm: str, use_lora: bool):
+    """``_project_in`` plus the LoRA delta ``(x @ a) @ b``, with ``b`` taken
+    as [r, heads, head_dim] and, on a mesh, sharded as the projection is
+    (its heads or its head_dim), so that the delta is contracted as the
+    projection is and never flattens a sharded pair."""
+    y = _project_in(x, p[nm])
+    if not use_lora or f"{nm}_lora_a" not in p:
+        return y
+    b = p[f"{nm}_lora_b"]
+    b = b.reshape(b.shape[0], y.shape[2], y.shape[3])
+    from torch.distributed.tensor import DTensor, Shard
+
+    if isinstance(y, DTensor) and isinstance(b, DTensor):
+        b = b.redistribute(b.device_mesh, [Shard(1) if q.is_shard(2) else
+                                           Shard(2) if q.is_shard(3) else r
+                                           for q, r in zip(y.placements, b.placements)])
+    return y + _project_in(x @ p[f"{nm}_lora_a"], b)
+
+
 def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, causal: bool = True,
                     window: Optional[int] = None, cache=None,
-                    constrain=lambda a, kind: a):
+                    constrain=lambda a, kind: a, use_lora: bool = False):
     """Returns (out [b, s, d], new_cache). ``cache`` (a layer's
-    ``{"k", "v", "len"}``) is updated in place."""
+    ``{"k", "v", "len"}``) is updated in place. ``use_lora`` adds the
+    ``*_lora_a @ *_lora_b`` deltas of the four projections in ``p``."""
     b, s, _ = x.shape
     x = constrain(x, "hidden_in")
-    q = _project_in(x, p["wq"])
-    k = _project_in(x, p["wk"])
-    v = _project_in(x, p["wv"])
+    q = _project_in_lora(x, p, "wq", use_lora)
+    k = _project_in_lora(x, p, "wk", use_lora)
+    v = _project_in_lora(x, p, "wv", use_lora)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -587,6 +647,12 @@ def attention_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg, *,
             new_cache = {"k": kc, "v": vc, "len": ln + s}
     o = constrain(o, "heads")
     out = _project_out(o, p["wo"])
+    if use_lora and "wo_lora_a" in p:
+        # (o flattened over heads and head_dim) @ a: a head_dim-sharded o is
+        # gathered first (DTensor cannot flatten the pair with its trailing
+        # dim sharded, nor carry the gradient of a reordered ``a``)
+        flat = gathered(o, -1).reshape(b, s, -1)
+        out = out + (flat @ p["wo_lora_a"]) @ p["wo_lora_b"]
     return out, new_cache
 
 
@@ -608,9 +674,14 @@ def init_mlp(init: ParamInit, prefix: str, d: int, ff: int, lora_rank: int = 0,
 
 
 def mlp_block(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              constrain=lambda a, k: a) -> torch.Tensor:
+              constrain=lambda a, k: a, use_lora: bool = False) -> torch.Tensor:
     x = constrain(x, "hidden_in")
     hpre = x @ gathered(p["wi"], -2)
+    delta = _lora_delta(x, p, "wi", use_lora, like=hpre)
+    if delta is not None:
+        hpre = hpre + delta
     hid = torch.nn.functional.silu(x @ gathered(p["wg"], -2)) * hpre
     hid = constrain(hid, "ffn")
-    return hid @ gathered(p["wo"], -1)
+    out = hid @ gathered(p["wo"], -1)
+    delta = _lora_delta(hid, p, "wo", use_lora)
+    return out if delta is None else out + delta

@@ -1,12 +1,16 @@
-"""Dense decoder-only transformer (llama3 / qwen3 / stablelm backbone).
+"""Decoder-only transformer: the dense, MoE and VLM families (llama3 /
+qwen3 / stablelm, mixtral / qwen3-moe, the llava backbone).
 
-Counterpart of the dense half of ``repro/models/transformer.py``. Layers
+Counterpart of ``repro/models/transformer.py``. Layers
 are stacked on a leading axis, as in the reference (whose ``lax.scan``
 keeps its HLO depth-independent); here they are taken apart by one
 ``unbind`` and a Python loop over ``constrain.walk`` runs them, each under
 the plan's ``remat`` while autograd records, and the dry run traces one
-layer and weights it by the depth. ``dense_loss`` is the train cells'
-cross-entropy. The cache layout is the reference's,
+layer and weights it by the depth. A config with ``moe`` runs
+``models/moe.py``'s block in place of the MLP and adds its load-balancing
+loss; one with a ``frontend`` projects the stub's embeddings
+(``FRONTEND_DIM`` wide) and puts them before the text. ``dense_loss`` is
+the train cells' cross-entropy. The cache layout is the reference's,
 ``[n_layers, b, S, kh, dh]``, and is updated in place (the reference
 donates it).
 """
@@ -17,10 +21,13 @@ from typing import Dict
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import ParamInit
 from repro_torch.sharding.plan import full_walk, is_sharded, local_call, shard_offset
 
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FRONTEND_DIM = 1024  # stub patch/frame embedding width
+AUX_LOSS_COEF = 0.01
 
 
 def torch_dtype(cfg) -> torch.dtype:
@@ -32,46 +39,71 @@ def init_dense(cfg, seed: int = 0, device="cpu"):
     paths joined with ``.``."""
     init = ParamInit(torch_dtype(cfg), device, seed)
     d, n = cfg.d_model, cfg.n_layers
-    if cfg.moe is not None:
-        raise NotImplementedError("moe layers come with the other model families "
-                                  "(ROADMAP queue 1 item 9)")
     init.normal("embed", (cfg.vocab, d), ("vocab", "embed"))
     stack, ax = (n,), ("layers",)
     init.ones("blocks.ln1", (n, d), ("layers", "embed"))
     L.init_attention(init, "blocks.attn", cfg, stack=stack, stack_axes=ax)
     init.ones("blocks.ln2", (n, d), ("layers", "embed"))
-    L.init_mlp(init, "blocks.mlp", d, cfg.d_ff, stack=stack, stack_axes=ax)
+    if cfg.moe is not None:
+        MOE.init_moe_mlp(init, "blocks.mlp", d, cfg.moe, stack=stack, stack_axes=ax)
+    else:
+        L.init_mlp(init, "blocks.mlp", d, cfg.d_ff, stack=stack, stack_axes=ax)
     init.ones("ln_f", (d,), ("embed",))
     if not cfg.tie_embeddings:
         init.normal("lm_head", (d, cfg.vocab), ("embed", "vocab"))
+    if cfg.frontend:
+        init.normal("frontend_proj", (FRONTEND_DIM, d), (None, "embed"))
     return init.values, init.axes
 
 
-def layer_stack(params: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
-    """Each stacked ``blocks.*`` parameter taken apart into its layers by
+def layer_stack(params: Dict[str, torch.Tensor], prefix: str = "blocks.") -> Dict[str, tuple]:
+    """Each stacked ``prefix*`` parameter taken apart into its layers by
     one ``unbind`` (views): under autograd its backward is one ``stack``
     of the layers' gradients, where indexing layer by layer would give
     each layer a full-size zero gradient of the whole stack."""
-    return {k: v.unbind(0) for k, v in params.items() if k.startswith("blocks.")}
+    return {k: v.unbind(0) for k, v in params.items() if k.startswith(prefix)}
 
 
 def layer_params(stack: Dict[str, tuple], i: int) -> Dict[str, Dict]:
-    """Layer ``i`` 's parameters, from ``layer_stack``, as ``{"ln1", "attn":
-    {...}, "ln2", "mlp": {...}}``."""
-    out: Dict = {"attn": {}, "mlp": {}}
+    """Layer ``i`` 's parameters, from ``layer_stack``, as the nested tree
+    under the stack's prefix (``{"ln1", "attn": {...}, "ln2", "mlp":
+    {...}}`` for a dense layer)."""
+    out: Dict = {}
     for k, v in stack.items():
-        path = k.split(".")[1:]
-        if len(path) == 1:
-            out[path[0]] = v[i]
-        else:
-            out[path[0]][path[1]] = v[i]
+        *path, leaf = k.split(".")[1:]
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = v[i]
+    return out
+
+
+def sub_tree(params: Dict[str, torch.Tensor], prefix: str) -> Dict[str, Dict]:
+    """The unstacked parameters under ``prefix.`` as a nested tree."""
+    out: Dict = {}
+    for k, v in params.items():
+        if k.startswith(prefix + "."):
+            *path, leaf = k[len(prefix) + 1:].split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = v
     return out
 
 
 def _embed_inputs(cfg, params, batch, constrain):
-    """Token embedding. Returns (x [b,s,d], positions [b,s])."""
+    """Token (+ frontend stub) embedding. Returns (x [b,s,d], positions
+    [b,s]); the frontend's rows come before the text."""
     tok = batch["tokens"]
     x = torch.nn.functional.embedding(tok, L.gathered(params["embed"], -1))
+    if cfg.frontend:
+        # the stub's rows projected where the residual's sequence shards
+        # put them, then both parts placed whole over the sequence before
+        # the concat (on a mesh the tokens' rows are a vocab-parallel
+        # partial sum until placed)
+        fe = L.rows_matmul(constrain, constrain(batch["frontend"], "hidden").to(x.dtype),
+                           params["frontend_proj"])
+        x = torch.cat([constrain(fe, "hidden_in"), constrain(x, "hidden_in")], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     return constrain(x, "hidden"), positions
@@ -111,9 +143,9 @@ def _last_token(constrain, x):
 
 
 def _layer_body(cfg, constrain, x, lp, lcache, positions, window):
-    """Returns (out, new_cache). Each branch's output is placed as the
-    residual before it is added (on a sharded mesh its row-parallel sums
-    are reduced there, once, in the activations' dtype, where DTensor
+    """Returns (out, aux_loss, new_cache). Each branch's output is placed
+    as the residual before it is added (on a sharded mesh its row-parallel
+    sums are reduced there, once, in the activations' dtype, where DTensor
     would otherwise carry them as pending sums into the next norm)."""
     a, new_cache = L.attention_block(
         lp["attn"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
@@ -121,8 +153,12 @@ def _layer_body(cfg, constrain, x, lp, lcache, positions, window):
         cache=lcache, constrain=constrain,
     )
     h = x + constrain(a, "hidden")
-    m = L.mlp_block(lp["mlp"], L.rmsnorm(h, lp["ln2"], cfg.norm_eps), constrain)
-    return h + constrain(m, "hidden"), new_cache
+    hn = L.rmsnorm(h, lp["ln2"], cfg.norm_eps)
+    if cfg.moe is not None:
+        m, aux = MOE.moe_block(lp["mlp"], hn, cfg.moe, constrain)
+    else:
+        m, aux = L.mlp_block(lp["mlp"], hn, constrain), None
+    return h + constrain(m, "hidden"), aux, new_cache
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -160,24 +196,42 @@ def _remat(remat: str, fn, *args):
 
 
 def _run_layers(cfg, params, x, positions, cache, constrain, remat: str = "none"):
-    """The layer loop; ``cache`` (or ``None``) is updated in place."""
+    """The layer loop; ``cache`` (or ``None``) is updated in place.
+    Returns (normed hidden, the MoE aux loss averaged over the layers, or
+    ``None`` without MoE)."""
     walk = getattr(constrain, "walk", full_walk)
     stack = layer_stack(params)
-    for i, _ in walk(cfg.n_layers, "uniform"):
+    aux = None
+    for i, w in walk(cfg.n_layers, "uniform"):
         lcache = None
         if cache is not None:
             lcache = {"k": cache["k"][i], "v": cache["v"][i], "len": cache["len"]}
 
         def body(x, lp):
-            return _layer_body(cfg, constrain, x, lp, lcache, positions, cfg.swa_window)[0]
+            out, a, _ = _layer_body(cfg, constrain, x, lp, lcache, positions, cfg.swa_window)
+            return out if a is None else (out, a)
 
-        x = _remat(remat, body, x, layer_params(stack, i))
-    return L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+        out = _remat(remat, body, x, layer_params(stack, i))
+        if isinstance(out, tuple):
+            # a traced step of weight w stands for w layers' aux losses
+            x, a = out
+            aux = a * w if aux is None else aux + a * w
+        else:
+            x = out
+    if aux is not None:
+        aux = aux / cfg.n_layers
+    return L.rmsnorm(x, params["ln_f"], cfg.norm_eps), aux
 
 
 def dense_forward(cfg, params, batch, *, cache=None, constrain=lambda a, k: a,
                   remat: str = "none"):
     """Returns (hidden [b,s,d], new_cache)."""
+    x, _, new_cache = _forward(cfg, params, batch, cache, constrain, remat)
+    return x, new_cache
+
+
+def _forward(cfg, params, batch, cache, constrain, remat):
+    """Returns (hidden, aux loss or ``None``, new_cache)."""
     if cache is None:
         x, positions = _embed_inputs(cfg, params, batch, constrain)
     else:
@@ -186,10 +240,10 @@ def dense_forward(cfg, params, batch, *, cache=None, constrain=lambda a, k: a,
         x = torch.nn.functional.embedding(tok, L.gathered(params["embed"], -1))
         positions = cache["len"][:, None] + torch.zeros_like(tok)
         x = constrain(x, "hidden")
-    x = _run_layers(cfg, params, x, positions, cache, constrain, remat)
+    x, aux = _run_layers(cfg, params, x, positions, cache, constrain, remat)
     new_cache = None if cache is None else {"k": cache["k"], "v": cache["v"],
                                             "len": cache["len"] + 1}
-    return x, new_cache
+    return x, aux, new_cache
 
 
 class _VocabParallelNLL(torch.autograd.Function):
@@ -278,11 +332,17 @@ def ce_loss(cfg, params, x, tgt, constrain, loss_chunk: int = 0):
 
 def dense_loss(cfg, params, batch, constrain=lambda a, k: a, remat: str = "none",
                loss_chunk: int = 0):
-    """Returns (loss, {"loss", "aux", "tokens"}), as the reference's."""
-    x, _ = dense_forward(cfg, params, batch, constrain=constrain, remat=remat)
+    """Returns (loss, {"loss", "aux", "tokens"}), as the reference's: the
+    cross-entropy (on the text positions only, after a frontend) plus
+    ``AUX_LOSS_COEF`` times the MoE load-balancing loss."""
+    x, aux, _ = _forward(cfg, params, batch, None, constrain, remat)
+    if cfg.frontend:
+        x = x[:, -batch["tokens"].shape[1]:]  # loss only on text positions
     ce, tokens = ce_loss(cfg, params, x, batch["targets"], constrain, loss_chunk)
-    return ce, {"loss": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device),
-                "tokens": tokens}
+    if aux is None:
+        return ce, {"loss": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device),
+                    "tokens": tokens}
+    return ce + AUX_LOSS_COEF * aux, {"loss": ce, "aux": aux, "tokens": tokens}
 
 
 def init_dense_cache(cfg, batch_size: int, max_len: int, dtype: torch.dtype,
@@ -300,7 +360,7 @@ def dense_prefill(cfg, params, batch, cache, constrain=lambda a, k: a):
     """Populate the cache from a prompt; returns (last-token logits, cache)."""
     x, positions = _embed_inputs(cfg, params, batch, constrain)
     s = x.shape[1]
-    x = _run_layers(cfg, params, x, positions, cache, constrain)
+    x, _ = _run_layers(cfg, params, x, positions, cache, constrain)
     logits = _logits(cfg, params, _last_token(constrain, x))
     return logits, {"k": cache["k"], "v": cache["v"], "len": cache["len"] + s}
 

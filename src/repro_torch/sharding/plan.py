@@ -148,10 +148,15 @@ class ShardingPlan:
         return {k: self.resolve(mesh, v.shape, ("batch",) + (None,) * (len(v.shape) - 1))
                 for k, v in batch.items()}
 
-    def cache_specs(self, mesh, cache: Mapping[str, Any]) -> Dict[str, Tuple]:
-        """Placements for a KV cache, by leaf name (``CACHE_KINDS``)."""
+    def cache_specs(self, mesh, cache: Mapping[str, Any]) -> Dict[str, Any]:
+        """Placements for a cache, by leaf name (``CACHE_KINDS``); a nested
+        dict (the hybrid's ``mamba`` and ``attn`` parts) nests its
+        placements the same way."""
         out = {}
         for k, v in cache.items():
+            if isinstance(v, Mapping):
+                out[k] = self.cache_specs(mesh, v)
+                continue
             dims = CACHE_KINDS.get(k)
             if dims is None or len(dims) != len(v.shape):
                 dims = (None,) * len(v.shape)

@@ -255,16 +255,18 @@ def llama_2l():
 @pytest.mark.cuda
 def test_full_width_prefill_and_decode_match_the_cpu():
     """bf16 on the card against f32 on the CPU, same weights: a 2048-token
-    prefill and 8 decode steps within ``MODEL_REL`` at every step."""
+    prefill and 8 decode steps within ``MODEL_REL`` at every step and in
+    every cache leaf; f32 on the card within ``F32_REL``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the model runs there in bf16")
-    from repro_torch.launch.measure import MODEL_REL, check_against_cpu
+    from repro_torch.launch.measure import F32_REL, MODEL_REL, check_against_cpu
 
     chk = check_against_cpu("llama3-8b", n_layers=2, tokens=2048, steps=8, device="cuda")
     assert chk["finite"]
     assert chk["len"] == ([2048 + 8], [2048 + 8])
-    assert max(chk["logits"]) < MODEL_REL, chk["logits"]
-    assert chk["cache"] < MODEL_REL
+    assert max(chk["bf16"]["logits"]) < MODEL_REL, chk["bf16"]["logits"]
+    assert max(chk["bf16"]["cache"].values()) < MODEL_REL
+    assert chk["f32"]["worst"] < F32_REL
     assert chk["ok"]
 
 
@@ -400,3 +402,93 @@ def test_vecmul_demo_runs_on_the_card(card, tmp_path):
     assert out["design"]["kernel"] == "vecmul" and out["device"] == "cuda"
     assert out["max_abs_err"] == 0.0 and ops.launch_counts()["vecmul"] == 1
     assert out["rows"] == 6 and out["negatives"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b", "llava-next-34b",
+                                  "mamba2-780m", "zamba2-2.7b", "seamless-m4t-medium"])
+def test_reduced_families_on_the_card_match_the_cpu(arch):
+    """Each family at ``reduced`` size in f32 (TF32 off) on the card and on
+    the CPU, same weights: a 40-position prefill and two decode steps within
+    1e-4 of the largest |logit|, every cache leaf too; no kernel of the
+    port runs (the models are torch math)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the models run there")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.measure import _cache_leaves, model_inputs
+    from repro_torch.models import model as M
+
+    cfg = reduced(get_config(arch))
+    params, _ = M.init_params(cfg, seed=0)
+    batch = model_inputs(cfg, 42, torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launch_counts()
+    try:
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: v.to(dev) for k, v in params.items()}
+            b = {k: (v[:, :40] if k == "tokens" else v).to(dev) for k, v in batch.items()}
+            pre = cfg.frontend_len if cfg.family == "vlm" else 0
+            with torch.no_grad():
+                lg, cache = M.prefill_fn(cfg, p, b, M.init_cache(cfg, 1, pre + 48, device=dev))
+                logits = [lg]
+                for i in (40, 41):
+                    lg, cache = M.decode_fn(cfg, p, {"tokens": batch["tokens"][:, i:i + 1]
+                                                     .to(dev)}, cache)
+                    logits.append(lg)
+            outs[dev] = ([x.cpu() for x in logits],
+                         {k: v.cpu() for k, v in _cache_leaves(cache)})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for want, got in zip(outs["cpu"][0], outs["cuda"][0]):
+        assert _rel(want, got) < 1e-4
+    for k, want in outs["cpu"][1].items():
+        if k.endswith("len"):
+            assert torch.equal(want, outs["cuda"][1][k])
+        else:
+            assert _rel(want, outs["cuda"][1][k]) < 1e-4, k
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["lora", "frontend"])
+def test_full_width_model_check_catches_a_fault_on_the_card(fault, monkeypatch):
+    """The family model check with a fault on the card only: zamba2-2.7b's
+    shared block without its q, k, v and MLP LoRA deltas (one group of 6
+    layers), or llava-next-34b's frontend rows shifted by one (2 layers).
+    The f32 run fails its limit in both; the bf16 run fails too where the
+    fault outgrows bf16's rounding (the LoRA; a reduced llava's shift reads
+    0.64% on the CPU). ``pytest -s`` prints the readings."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fault is on the card's side")
+    from repro_torch.launch.measure import F32_REL, check_against_cpu
+    from repro_torch.models import layers as TL
+    from repro_torch.models import transformer as T
+
+    if fault == "lora":
+        arch, n = "zamba2-2.7b", 6
+        delta, proj = TL._lora_delta, TL._project_in_lora
+        monkeypatch.setattr(TL, "_lora_delta", lambda x, p, nm, use, like=None: delta(
+            x, p, nm, use and not x.is_cuda, like))
+        monkeypatch.setattr(TL, "_project_in_lora", lambda x, p, nm, use: proj(
+            x, p, nm, use and not x.is_cuda))
+    else:
+        arch, n = "llava-next-34b", 2
+        embed = T._embed_inputs
+
+        def shifted(cfg, params, batch, constrain):
+            x, positions = embed(cfg, params, batch, constrain)
+            if x.is_cuda and "frontend" in batch:
+                f = cfg.frontend_len
+                x = torch.cat([x[:, 1:f], x[:, :1], x[:, f:]], dim=1)
+            return x, positions
+
+        monkeypatch.setattr(T, "_embed_inputs", shifted)
+    chk = check_against_cpu(arch, n_layers=n, tokens=2048, steps=8, device="cuda")
+    print(f"{fault}: f32 {chk['f32']['worst']:.4g} (limit {F32_REL}), bf16 "
+          f"{chk['bf16']['worst']:.4g} (limit {chk['limit']['bf16']:.4g})")
+    assert chk["finite"] and not chk["ok"]
+    assert chk["f32"]["worst"] > F32_REL
+    if fault == "lora":
+        assert chk["bf16"]["worst"] > chk["limit"]["bf16"]

@@ -4,8 +4,9 @@ of qwen3-0.6b's serve and train cells on the 2x4 mesh (train: FLOPs
 less the reference's extra attention forward within 1%, temp bytes at
 most the reference's), the collective
 kinds, the trip-count weighting against a fully unrolled trace (train
-cells: ``tests/test_torch_train_trace.py``), the production-mesh records
-of llama3-8b, and the error records of cells not ported yet.
+cells: ``tests/test_torch_train_trace.py``), and the production-mesh
+records of llama3-8b and of mixtral-8x7b's decode cells (the other
+families: ``tests/test_torch_dryrun_families.py``).
 
 The reference runs in a subprocess with 8 forced host devices; the port's
 mesh is a fake process group in this process."""
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from conftest import run_subprocess
+from torch_dryrun_parity import REFERENCE_F32_WIRE, TRAIN_TEMP_FACTOR, WIRE_FACTOR
 from repro.configs import ARCH_NAMES, SHAPES
 from repro.configs import get_config as jget
 from repro.launch.dryrun import model_flops as jmodel_flops
@@ -40,18 +42,6 @@ PREFILL_REFERENCE_ONLY = {"all-to-all", "collective-permute"}
 TRAIN_PORT_ONLY = {"reduce-scatter"}
 TRAIN_REFERENCE_ONLY = {"all-to-all"}
 
-#: the port's wire bytes per device lie within this factor of the
-#: reference's: a plan that moves a cache or a weight it need not (a
-#: gathered KV cache is thousands of times the reference's bytes) fails
-WIRE_FACTOR = 4.0
-#: XLA:CPU runs every collective of the reference in f32 (its train HLO
-#: all-gathers and all-reduces the [128, 4096, 1024] activations as f32),
-#: where the port moves a bf16 model's activations and gradients in bf16:
-#: the train cell's wire bytes are held to the reference's at this scale
-REFERENCE_F32_WIRE = 0.5
-#: the port's train temp bytes stay at or under the reference's: a loss
-#: that gathers the f32 logits over their vocab shards (4.75x) fails
-TRAIN_TEMP_FACTOR = 1.0
 #: train FLOPs against the reference's less one attention forward a layer,
 #: which its kv-block checkpoint nested in the q-chunk checkpoint
 #: recomputes and the port's does not (``_extra_attention_forward``)
@@ -204,9 +194,11 @@ def test_production_mesh_records(tmp_path):
     assert set(rec) == keys and rec["n_devices"] == 256
     assert rec["hlo"]["flops"] > rec["hlo"]["dot_flops_once"] > 0
     assert rec["memory"]["alias_bytes"] > 0 and rec["roofline"]["bound_s"] > 0
-    for arch, shape, why in [("mixtral-8x7b", "train_4k", "queue 1 item 9"),
-                             ("mixtral-8x7b", "decode_32k", "queue 1 item 9")]:
+    # the other families run too (tests/test_torch_dryrun_families.py):
+    # mixtral's decode, and its 524k-token decode over the 4096-token window
+    for arch, shape in [("mixtral-8x7b", "decode_32k"), ("mixtral-8x7b", "long_500k")]:
         rec = dryrun.run_cell(arch, shape, mesh, name, artifact_dir=tmp_path)
-        assert rec["status"] == "error" and why in rec["error"]
+        assert rec["status"] == "ok", rec.get("error")
+        assert set(rec) == keys and rec["hlo"]["flops"] > 0
     assert dryrun.run_cell("llama3-8b", "long_500k", mesh, name,
                            artifact_dir=tmp_path)["status"] == "skipped"

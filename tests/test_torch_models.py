@@ -113,17 +113,21 @@ def test_decode_is_consistent_with_a_longer_prefill(arch):
 
 
 def test_other_families_and_train_cells_name_their_slice():
+    """Every family is ported (``tests/test_torch_families.py`` holds them
+    to the reference): their params and input specs build, with the
+    reference's shapes, for an MoE arch as for the dense ones."""
     from repro_torch.configs import SHAPE_BY_NAME
 
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        TM.init_params(tget("mixtral-8x7b"), device="meta")
+    params, axes = TM.init_params(tget("mixtral-8x7b"), device="meta")
+    assert params["blocks.mlp.wi"].shape == (32, 8, 4096, 14336)
+    assert axes["blocks.mlp.wi"] == ("layers", "experts", "embed", "expert_ffn")
     # train cells are ported: the reference's int32 [B, S] tokens and targets
-    want = JM.input_specs(get_config("llama3-8b"), SHAPE_BY_NAME["train_4k"])["batch"]
-    got = TM.input_specs(tget("llama3-8b"), SHAPE_BY_NAME["train_4k"])["batch"]
-    assert set(got) == set(want) == {"tokens", "targets"}
-    for k, v in got.items():
-        assert tuple(v.shape) == want[k].shape and v.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        TM.input_specs(tget("mixtral-8x7b"), SHAPE_BY_NAME["train_4k"])
-    assert TM.cell_supported(tget("llama3-8b"), SHAPE_BY_NAME["long_500k"]) == \
-        JM.cell_supported(get_config("llama3-8b"), SHAPE_BY_NAME["long_500k"])
+    for arch in ("llama3-8b", "mixtral-8x7b"):
+        want = JM.input_specs(get_config(arch), SHAPE_BY_NAME["train_4k"])["batch"]
+        got = TM.input_specs(tget(arch), SHAPE_BY_NAME["train_4k"])["batch"]
+        assert set(got) == set(want) == {"tokens", "targets"}
+        for k, v in got.items():
+            assert tuple(v.shape) == want[k].shape and v.dtype == torch.int32
+    for arch in ("llama3-8b", "mixtral-8x7b", "mamba2-780m"):
+        assert TM.cell_supported(tget(arch), SHAPE_BY_NAME["long_500k"]) == \
+            JM.cell_supported(get_config(arch), SHAPE_BY_NAME["long_500k"])

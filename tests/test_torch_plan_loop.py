@@ -340,9 +340,10 @@ def test_measure_cuts_the_batch_to_fit_and_skips_what_never_fits(tiny, tmp_path,
     fit = measure.one_device_batch("qwen3-0.6b", "train_4k", evaluator_mod.point_to_plan(
         tiny, TINY_CELL, plan_pt), cfg=tiny, cell=TINY_CELL, artifact_dir=tmp_path / "f",
         run_name="probe")
-    assert fit["status"] == "ok" and fit["batch"] == 8 and set(fit["traced"]) == {"1", "2", "8"}
-    b1, b2 = fit["traced"]["1"], fit["traced"]["2"]
-    assert b1 < b2 < fit["traced"]["8"] == fit["per_device_bytes"]
+    # the bisection over batches 1, 2, 4, 8 traces 2, 4 and 8
+    assert fit["status"] == "ok" and fit["batch"] == 8 and set(fit["traced"]) == {"2", "4", "8"}
+    b2, b4 = fit["traced"]["2"], fit["traced"]["4"]
+    assert b2 < b4 < fit["traced"]["8"] == fit["per_device_bytes"]
     # a card that holds batch 2 but not 4: the head runs at batch 2
     limit = 1.0001 * b2
     monkeypatch.setattr(measure, "FIT_SHARE", limit / evaluator_mod.H100_SXM.hbm_bytes)
@@ -367,8 +368,9 @@ def test_measure_cuts_the_batch_to_fit_and_skips_what_never_fits(tiny, tmp_path,
     assert ev.measure("qwen3-0.6b", "train_4k", tri).status == "error"
     assert batches == [8, 8]
     monkeypatch.setattr(measure, "measure_cell", real)
-    # one that cannot hold batch 1: a rejected row, never run, cached
-    monkeypatch.setattr(measure, "FIT_SHARE", 0.5 * b1 / evaluator_mod.H100_SXM.hbm_bytes)
+    # one that cannot hold batch 1 (half of batch 2's bytes, below batch
+    # 1's: the params are in both): a rejected row, never run, cached
+    monkeypatch.setattr(measure, "FIT_SHARE", 0.5 * b2 / evaluator_mod.H100_SXM.hbm_bytes)
     other = PlanPoint(dims={**plan_pt.dims, "remat": "none"})
     before = measure.N_MEASUREMENTS
     dp = ev.measure("qwen3-0.6b", "train_4k", other)

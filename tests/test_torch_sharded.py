@@ -199,3 +199,94 @@ def test_sharded_train_step_matches_the_plain_step():
     assert not alive, f"workers still running after 240 s: {alive}"
     assert [p.exitcode for p in procs] == [0] * WORLD
     assert list(errors) == []
+
+
+def _families_worker(rank: int, port: int, errors) -> None:
+    """A reduced mixtral (MoE) under ``expert_rule`` ``experts`` and
+    ``expert_ffn``, and a reduced mamba2 under the baseline plan, on a 2x2
+    mesh: prefill, one decode step and the train loss's forward, against
+    the plain run on the same weights."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import SHAPE_BY_NAME, get_config, reduced
+    from repro_torch.core.design_space import PlanPoint, point_to_plan
+    from repro_torch.models import model as M
+    from repro_torch.serve import step as S
+
+    torch.set_num_threads(THREADS)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=WORLD)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        cell = SHAPE_BY_NAME["prefill_32k"]
+        # 2 x 32 prompt tokens: each data shard holds 32, two whole groups
+        # of 16, kept on their shard; the decode step's 2 tokens are one
+        # group, which each shard takes whole
+        runs = [("mixtral-8x7b", {"expert_rule": "experts"}),
+                ("mixtral-8x7b", {"expert_rule": "expert_ffn"}),
+                ("mamba2-780m", {})]
+        for arch, dims in runs:
+            cfg = reduced(get_config(arch))
+            plan = point_to_plan(cfg, cell, PlanPoint(dims))
+            params, _ = M.init_params(cfg, seed=3)
+            gen = torch.Generator().manual_seed(4)
+            tok = torch.randint(0, cfg.vocab, (2, 33), generator=gen, dtype=torch.int32)
+            batch = {"tokens": tok[:, :32], "targets": tok[:, 1:]}
+            with torch.no_grad():
+                wl, wc = M.prefill_fn(cfg, params, {"tokens": tok[:, :32]},
+                                      M.init_cache(cfg, 2, 40))
+                wd, wc = M.decode_fn(cfg, params, {"tokens": tok[:, 32:]}, wc)
+                wloss, _ = M.loss_fn(cfg, params, batch)
+            specs = {"batch": {"tokens": tok[:, :32]}, "cache": M.init_cache(cfg, 2, 40)}
+            pp, bp, cp = S.serve_shardings(cfg, plan, mesh, specs)
+
+            def place(tree, pl):
+                if isinstance(tree, dict):
+                    return {k: place(v, pl[k]) for k, v in tree.items()}
+                return distribute_tensor(tree, mesh, pl)
+
+            dparams = place(params, pp)
+            cache = place(specs["cache"], cp)
+
+            def rel(want, got):
+                got = got.full_tensor() if isinstance(got, DTensor) else got
+                return float((want - got).abs().max() / want.abs().max())
+
+            with torch.no_grad(), implicit_replication():
+                gl, cache = S.make_prefill_step(cfg, plan, mesh)(
+                    dparams, place({"tokens": tok[:, :32]}, bp), cache)
+                gd, cache = S.make_decode_step(cfg, plan, mesh)(
+                    dparams, place({"tokens": tok[:, 32:]}, bp), cache)
+                tp = plan.batch_specs(mesh, batch)
+                gloss, _ = M.loss_fn(cfg, dparams, place(batch, tp), plan.make_constrain(mesh))
+                errs = [rel(wl, gl), rel(wd, gd), rel(wloss, gloss)]
+                errs += [rel(w, cache[k]) for k, w in wc.items() if k != "len"]
+            if max(errs) > 1e-5:
+                errors.append(f"rank {rank} {arch} {dims}: {errs}")
+    except Exception as e:  # noqa: BLE001 — reported to the parent, which fails the test
+        import traceback
+
+        errors.append(f"rank {rank}: {type(e).__name__}: {e}\n{traceback.format_exc()[-1500:]}")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_moe_and_mamba2_match_the_plain_run():
+    ctx = mp.get_context("spawn")
+    errors = ctx.Manager().list()
+    port = _free_port()
+    procs = [ctx.Process(target=_families_worker, args=(r, port, errors)) for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=240)
+    alive = [p.pid for p in procs if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert not alive, f"workers still running after 240 s: {alive}"
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    assert list(errors) == []
