@@ -136,33 +136,52 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    frontend rows; beside seamless' 1024 frames) and 8 decode steps on the
    card against f32 on the CPU, same weights, zamba2's LoRA halves random
    (mamba2 at 2 layers, zamba2 at one group of 6 and the shared block,
-   mixtral at 2, qwen3-moe at 1, llava at 2, seamless at 2 + 2), each as
+   mixtral at 2, qwen3-moe at 1, llava at 1, seamless at 2 + 2), each as
    phase 5's check: f32 within ``F32_REL``, bf16 within ``MODEL_REL`` or,
    past it, within ``BF16_GAP_FACTOR`` times the CPU's own bf16 gap (llava's
    reference alone departs by 2.49%); MoE's bf16 run is held finite, with
    the share of its top-k choices that differ printed (a near-tied choice
    flips); (c) the measured
-   tier (``measure_cell``, min of 3) at full width, the batch from
+   tier (``measure_cell``: the min of 3 timed runs after a warm one, 1 for
+   the steps of 8 s and more: mamba2 and seamless ``prefill_32k`` and
+   llava's) at full width, the batch from
    ``one_device_batch`` and a depth from ``one_device_depth`` where the
    model does not fit (the cuts printed under ``reduced``), beside the
-   1x1 dry run's bound: mamba2 ``prefill_32k`` and ``long_500k``, zamba2
+   1x1 dry run's bound and the bytes the process held on the card before
+   the step: mamba2 ``prefill_32k`` and ``long_500k``, zamba2
    ``long_500k`` (9 K and V caches of 524288 positions), mixtral
    ``decode_32k``, llava ``prefill_32k`` and seamless ``prefill_32k``;
    (d) one train step on the card against the CPU
    (``check_train_against_cpu``): mamba2 at 2 layers on 2048 tokens in
-   bf16 and mixtral at 1 layer on 512 in f32 (routing flips, as in (b)),
+   bf16 and mixtral at 1 layer on 256 in f32 (routing flips, as in (b)),
    the moments and each new param's update against the CPU's AdamW on the
    card's gradient;
    (e) 0 kernel launches on
    that path; then ``models/mamba2.ssd_chunked`` against the port's
    ``ssd_scan`` kernel at mamba2-780m widths on the same inputs within the
-   kernel's tolerance, a launch counted apart.
+   kernel's tolerance, a launch counted apart;
+9. plan campaigns (launch counts set to 0 before and read after: the
+   campaign runs torch math and launches no kernel of the port): (a)
+   ``repro_torch.launch.campaign --space plans --mesh pod`` over llama3-8b
+   and mamba2-780m by ``decode_32k`` and ``long_500k`` (1 iteration, budget
+   2, 4 dry-run workers, the best head of each cell measured on the card):
+   3 cells ``complete`` and llama3-8b ``long_500k`` ``unsupported``, no
+   ``error`` row, one ``ok`` head on ``cuda`` a complete cell with its cut
+   under ``reduced``, 4 cells in ``BENCH_ladder.json``; the wall time, the
+   dry runs and their seconds, rows by status and each cell's best bound
+   beside its head are printed, and the time a pool of 2 spawned workers
+   takes to import the dry run; (b) the same command again resumes every
+   cell, with no dry run and no head timed; (c)
+   ``repro_torch.launch.orchestrator --shards 2 --queue`` over the same grid
+   on the host (``--measure-top-k 0 --device cpu``) merges to the same
+   cells and statuses with no ``error`` row and each cell's best bound
+   equal to (a)'s.
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
 the main path also launched has an entry of its own, ``<kernel>/<route>``),
 ``launches`` sums the main-path runs (phase 3, the campaign, the Pareto
-cell and phase 7, each counted from 0; ``launches_by_path`` splits them), then the
+cell, phase 7 and phase 9, each counted from 0; ``launches_by_path`` splits them), then the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. It imports nothing of jax or of the JAX package.
 """
@@ -660,10 +679,13 @@ def other_families(card: str) -> None:
     # (c) the measured tier at full width, beside each cut cell's 1x1 bound
     mesh, name = make_campaign_mesh("tiny", "cuda")
     fit_dir = OUT / "fit1x1_families"
-    cells = [("mamba2-780m", "prefill_32k", False), ("mamba2-780m", "long_500k", False),
-             ("zamba2-2.7b", "long_500k", False), ("mixtral-8x7b", "decode_32k", True),
-             ("llava-next-34b", "prefill_32k", True), ("seamless-m4t-medium", "prefill_32k", False)]
-    for arch, shape, cut_depth in cells:
+    # the three steps of 8-31 s take one timed run after the warm one (the
+    # others the min of 3), a cut that keeps the script within its limit
+    cells = [("mamba2-780m", "prefill_32k", False, 1), ("mamba2-780m", "long_500k", False, 3),
+             ("zamba2-2.7b", "long_500k", False, 3), ("mixtral-8x7b", "decode_32k", True, 3),
+             ("llava-next-34b", "prefill_32k", True, 1),
+             ("seamless-m4t-medium", "prefill_32k", False, 1)]
+    for arch, shape, cut_depth, runs in cells:
         t = time.perf_counter()
         full_cell = SHAPE_BY_NAME[shape]
         cfg = get_config(arch)
@@ -679,7 +701,9 @@ def other_families(card: str) -> None:
         if fit["status"] != "ok":
             fail(f"batch fit {arch} {shape}: {fit}")
         cell = dataclasses.replace(full_cell, global_batch=fit["batch"])
-        rec = measure.measure_cell(arch, shape, mesh, name, plan, cfg=cfg, cell=cell, runs=3)
+        # what the process holds on the card before the step's own tensors
+        allocated_before = torch.cuda.memory_allocated()
+        rec = measure.measure_cell(arch, shape, mesh, name, plan, cfg=cfg, cell=cell, runs=runs)
         if rec["status"] != "ok" or rec["backend"] != "cuda":
             fail(f"measured tier {arch} {shape}: {rec.get('error')} {rec.get('trace')}")
         reduced = dict(rec.get("reduced", {}))
@@ -690,6 +714,8 @@ def other_families(card: str) -> None:
         line = {"arch": arch, "shape": shape, "mesh": name, "reduced": reduced,
                 "measured_s": rec["measured_s"], "times_s": rec["times_s"],
                 "warm_s": rec["warm_s"], "peak_bytes": rec["peak_bytes"],
+                "allocated_before": allocated_before,
+                "peak_less_held": rec["peak_bytes"] - allocated_before, "runs": runs,
                 "dryrun_bound_s": fit["bound_s"], "dryrun_dominant": fit["dominant"],
                 "dryrun_per_device_bytes": fit["per_device_bytes"],
                 "share_of_bound": fit["bound_s"] / rec["measured_s"], "card": card,
@@ -731,8 +757,10 @@ def other_families(card: str) -> None:
           f"({time.perf_counter() - t_phase:.1f} s into phase 8)", flush=True)
 
     # (b) each family at full width on the card against f32 on the CPU
+    # llava at 1 layer: its CPU side, f32 and the bf16 gap it needs past
+    # MODEL_REL, took 80 of its 105 s at 2 layers
     checks = [("mamba2-780m", 2), ("zamba2-2.7b", 6), ("mixtral-8x7b", 2),
-              ("qwen3-moe-235b-a22b", 1), ("llava-next-34b", 2), ("seamless-m4t-medium", 2)]
+              ("qwen3-moe-235b-a22b", 1), ("llava-next-34b", 1), ("seamless-m4t-medium", 2)]
     for arch, n in checks:
         t = time.perf_counter()
         chk = measure.check_against_cpu(arch, n_layers=n, tokens=2048, steps=8, device="cuda")
@@ -745,10 +773,10 @@ def other_families(card: str) -> None:
         torch.cuda.empty_cache()
 
     # (d) the train step's gradients on the card against the CPU
-    # mixtral's f32 CPU side takes 2.6 min at 2048 tokens: 512 are 8 groups
-    # of 64 through the dispatch, at a quarter of the time
+    # mixtral's f32 CPU side takes 2.6 min at 2048 tokens: 256 are 4 groups
+    # of 64 through the dispatch (512 took 86 s)
     for arch, n, tokens, dtype in (("mamba2-780m", 2, 2048, None),
-                                   ("mixtral-8x7b", 1, 512, "float32")):
+                                   ("mixtral-8x7b", 1, 256, "float32")):
         t = time.perf_counter()
         cfg = get_config(arch) if dtype is None else dataclasses.replace(get_config(arch),
                                                                          dtype=dtype)
@@ -790,6 +818,151 @@ def other_families(card: str) -> None:
           f"apart from the path's", flush=True)
     ops.reset_launch_counts()
     print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+#: phase 9's grid: a dense and an SSM arch, a decode cell each and the
+#: 524288-token cell, which only the SSM arch supports
+CAMPAIGN_GRID = ("llama3-8b,mamba2-780m", "decode_32k,long_500k")
+
+
+def _spawned_import() -> int:
+    """What a dry-run pool worker imports first (phase 9's spawn cost)."""
+    import repro_torch.launch.dryrun  # noqa: F401
+
+    return os.getpid()
+
+
+def plan_campaign(card: str):
+    """Phase 9 (see the module docstring); returns the launch and route
+    counts of the phase (none)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from repro_torch.core.cost_db import CostDB
+    from repro_torch.kernels import ops
+    from repro_torch.launch import campaign
+
+    t_phase = time.perf_counter()
+    root = OUT / "campaign_plans"
+    shutil.rmtree(root, ignore_errors=True)
+    archs, shapes = CAMPAIGN_GRID
+    argv = ["--space", "plans", "--mesh", "pod", "--archs", archs, "--shapes", shapes,
+            "--iterations", "1", "--budget", "2", "--workers", "4", "--measure-top-k", "1",
+            "--out", str(root / "campaign")]
+    want = {("llama3-8b", "decode_32k"): "complete", ("llama3-8b", "long_500k"): "unsupported",
+            ("mamba2-780m", "decode_32k"): "complete", ("mamba2-780m", "long_500k"): "complete"}
+    ops.reset_launch_counts()
+
+    # (a) the campaign, its heads measured on the card
+    t = time.perf_counter()
+    first = campaign.main(argv)
+    wall = time.perf_counter() - t
+    out = root / "campaign"
+    lb = json.loads((out / "leaderboard.json").read_text())
+    got = {(r["arch"], r["shape"]): r["status"] for r in lb}
+    rows = CostDB(out / "cost_db.jsonl").all()
+    by_status: dict = {}
+    for d in rows:
+        by_status[d.status] = by_status.get(d.status, 0) + 1
+    if got != want or "error" in by_status:
+        fail(f"plan campaign: cells {got} (want {want}), rows {by_status}: "
+             f"{[d.reason for d in rows if d.status == 'error'][:2]}")
+    measured = [d for d in rows if d.fidelity == "measured"]
+    cells_measured = {(d.arch, d.shape) for d in measured}
+    complete = {c for c, st in want.items() if st == "complete"}
+    if (len(measured) != 3 or cells_measured != complete
+            or any(d.status != "ok" or d.metrics["backend"] != "cuda" for d in measured)):
+        fail(f"plan campaign: one head a complete cell, ok on cuda: "
+             f"{[(d.arch, d.shape, d.status, d.metrics.get('backend'), d.reason) for d in measured]}")
+    bench = json.loads((out / "BENCH_ladder.json").read_text())
+    if len(bench["cells"]) != 4:
+        fail(f"plan campaign: BENCH_ladder.json holds {len(bench['cells'])} cells, not 4")
+    traced = [json.loads(f.read_text()) for f in (out / "dryrun").glob("*.json")]
+    print("plan campaign " + json.dumps({
+        "cells": {f"{a}/{sh}": st for (a, sh), st in sorted(got.items())},
+        "wall_s": round(wall, 1), "dry_runs": first["compiles"],
+        "dry_run_s_sum": round(sum(r.get("wall_s", 0.0) for r in traced), 1),
+        "rows_by_status": by_status, "measured": first["measured"],
+        "summary": {k: first[k] for k in ("ran", "resumed", "unsupported", "evaluations",
+                                          "compiles", "measured", "cache")},
+        "card": card}), flush=True)
+    best = {}
+    for r in lb:
+        best[(r["arch"], r["shape"])] = r["bound_s"]
+        if r["status"] != "complete":
+            continue
+        head = next(d for d in measured if (d.arch, d.shape) == (r["arch"], r["shape"]))
+        m = head.metrics
+        print("plan campaign head " + json.dumps({
+            "cell": f"{r['arch']}/{r['shape']}", "best_bound_s_pod": r["bound_s"],
+            "best_point": r["best_point"], "head_bound_s_pod": m.get("bound_s_modeled"),
+            "measured_s": m["measured_s"], "reduced": m["reduced"],
+            "bound_s_1x1": m["bound_s_1x1"],
+            "share_of_1x1_bound": m["bound_s_1x1"] / m["measured_s"],
+            "peak_bytes": m["peak_bytes"], "per_device_bytes_1x1": m["per_device_bytes_1x1"],
+            "device_name": m["device_name"], "card": card}), flush=True)
+    torch.cuda.empty_cache()
+
+    # the pool's spawn cost: a fresh interpreter that imports the dry run, as
+    # each batch's workers do
+    t = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=2, mp_context=mp.get_context("spawn")) as pool:
+        [f.result() for f in [pool.submit(_spawned_import) for _ in range(2)]]
+    spawn_s = time.perf_counter() - t
+    print(f"plan campaign: a pool of 2 spawned workers importing the dry run takes "
+          f"{spawn_s:.1f} s; the campaign spawns one pool for its {first['ran']} batches (one "
+          f"a complete cell; the baselines dry-run in the campaign's process)", flush=True)
+
+    # (b) the same command again: every cell resumes
+    t = time.perf_counter()
+    again = campaign.main(argv)
+    if (again["ran"], again["resumed"], again["unsupported"], again["compiles"],
+            again["measured"]) != (0, 3, 1, 0, 0):
+        fail(f"plan campaign resume: {again}")
+    print(f"plan campaign resume: 3 cells resumed, 1 unsupported, 0 dry runs traced, 0 "
+          f"heads timed ({time.perf_counter() - t:.1f} s)", flush=True)
+
+    # (c) the orchestrator on the host: two queue-mode shards, no measured
+    # tier, merged
+    t = time.perf_counter()
+    orch_out = root / "orchestrator"
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.orchestrator", "--shards", "2", "--queue",
+         "--mesh", "pod", "--archs", archs, "--shapes", shapes, "--iterations", "1",
+         "--budget", "2", "--workers", "4", "--measure-top-k", "0", "--device", "cpu",
+         "--poll-interval", "0.5", "--out", str(orch_out)],
+        capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        timeout=600)
+    orch_wall = time.perf_counter() - t
+    if r.returncode != 0:
+        fail(f"orchestrator exited {r.returncode}: {r.stdout[-1500:]} {r.stderr[-1500:]}")
+    olb = json.loads((orch_out / "leaderboard.json").read_text())
+    osum = json.loads((orch_out / "summary.json").read_text())
+    ogot = {(x["arch"], x["shape"]): x["status"] for x in olb}
+    orows = CostDB(orch_out / "cost_db.jsonl").all()
+    if ogot != want or any(d.status == "error" for d in orows):
+        fail(f"orchestrator: cells {ogot} (want {want}), "
+             f"{[d.reason for d in orows if d.status == 'error'][:2]}")
+    pairs = {f"{x['arch']}/{x['shape']}": [best[(x["arch"], x["shape"])], x["bound_s"]]
+             for x in olb}
+    if any(a != b for a, b in pairs.values()):
+        fail(f"orchestrator: best bounds differ from the campaign's: {pairs}")
+    print("plan orchestrator " + json.dumps({
+        "wall_s": round(orch_wall, 1), "shards": 2, "queue": osum["queue_cells"],
+        "restarts": osum["restarts"], "steals": osum["steals"],
+        "evaluations": osum["evaluations"],
+        "best_bound_s_campaign_vs_orchestrator": pairs}), flush=True)
+
+    counts, route_counts = ops.launch_counts(), ops.route_launch_counts()
+    launched = {k: n for k, n in counts.items() if n}
+    if launched:
+        fail(f"the plan campaign launched kernels of the port: {launched}")
+    print("plan campaign path: 0 kernel launches", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts, route_counts
 
 
 def main() -> None:
@@ -1404,6 +1577,9 @@ def main() -> None:
 
     # ---- phase 8: the other model families ----
     other_families(card)
+
+    # ---- phase 9: the plan campaign and its supervisor ----
+    path_counts["plan_campaign"] = plan_campaign(card)
     for r in results:
         kernel, route = r["name"].split("/")[0], r["kernel_route"]
         r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel, route)

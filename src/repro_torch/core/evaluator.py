@@ -13,7 +13,10 @@ template are returned as *negative* data points, never dropped.
 
 * ``evaluate_batch`` fans the dry runs of a batch out over a spawn-based
   ``concurrent.futures`` process pool: each worker makes the mesh on a fake
-  process group of its own and runs only dry runs, never CUDA.
+  process group of its own and runs only dry runs, never CUDA. A pool's
+  workers import torch afresh (8.9 s for two on the H100's host, before
+  any dry run), so one pool of ``max_workers`` serves every batch until
+  ``close()``; its workers keep their mesh between batches.
 * A content-addressed :class:`~repro_torch.core.eval_cache.DryRunCache`
   keyed by ``(arch, shape, mesh_name, point.key())`` serves repeated
   designs without tracing again, across iterations, restarts and
@@ -96,6 +99,14 @@ class Evaluator:
     measured_count: int = 0  # actual timed executions (cache misses)
     measured_replayed: int = 0  # measurements served from measured_cache
     dryrun_s: float = 0.0  # wall seconds spent tracing (serial or pooled)
+    _pool: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    def close(self) -> None:
+        """Shut the kept pool down (idempotent; a later batch makes a new
+        one)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
 
     def __post_init__(self):
         if self.mesh is not None and not self.mesh_name:
@@ -163,7 +174,7 @@ class Evaluator:
         n_workers = min(n_workers, len(pending))
         t0 = time.perf_counter()
         if pending and n_workers > 1:
-            recs = self._run_pool(arch, shape, cfg, cell, pending, n_workers)
+            recs = self._run_pool(arch, shape, cfg, cell, pending)
         else:
             recs = [self._run_serial(arch, shape, cfg, cell, pt)
                     for _, pt in pending]
@@ -348,8 +359,7 @@ class Evaluator:
                                artifact_dir=self._adir(), cfg=cfg, cell=cell)
 
     def _run_pool(self, arch: str, shape: str, cfg, cell,
-                  pending: Sequence[Tuple[int, PlanPoint]],
-                  n_workers: int) -> List[Dict[str, Any]]:
+                  pending: Sequence[Tuple[int, PlanPoint]]) -> List[Dict[str, Any]]:
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor
 
@@ -359,16 +369,19 @@ class Evaluator:
                          run_name=f"{self.mesh_name}-{pt.key()}",
                          artifact_dir=adir)
                     for _, pt in pending]
+        if self._pool is None:  # fresh interpreters: no CUDA, no parent group
+            self._pool = ProcessPoolExecutor(max_workers=self.max_workers,
+                                             mp_context=mp.get_context("spawn"))
         recs: List[Dict[str, Any]] = []
-        ctx = mp.get_context("spawn")  # fresh interpreters: no CUDA, no parent group
-        with ProcessPoolExecutor(max_workers=n_workers, mp_context=ctx) as pool:
-            futures = [pool.submit(_pool_worker_evaluate, p) for p in payloads]
-            for fut in futures:
-                try:
-                    recs.append(fut.result())
-                except Exception as e:  # noqa: BLE001 — a dead worker is a negative datapoint
-                    recs.append({"status": "worker-failed",
-                                 "error": f"{type(e).__name__}: {e}"})
+        futures = [self._pool.submit(_pool_worker_evaluate, p) for p in payloads]
+        for fut in futures:
+            try:
+                recs.append(fut.result())
+            except Exception as e:  # noqa: BLE001 — a dead worker is a negative datapoint
+                recs.append({"status": "worker-failed",
+                             "error": f"{type(e).__name__}: {e}"})
+        if any(r["status"] == "worker-failed" for r in recs):
+            self.close()  # a dead worker breaks the pool: the next batch makes one
         return recs
 
     def _rec_to_datapoint(self, rec: Dict[str, Any], wl: Dict[str, float],

@@ -53,6 +53,16 @@ from its end until backward has left it, and its own peak is taken on
 top of them. Without autograd a step keeps nothing past its end (caches
 are written in place; what it leaves alive is its input, still named by
 the caller, which the next step would free).
+
+These are the step's own bytes. A card adds a fixed cost of its runtime
+that no step holds: the cuBLAS workspace, 32 MiB on the H100, allocated
+through the caching allocator by a process's first product and kept for
+the process's life, so it shows in the card's peak of whichever step
+first multiplies. In a fresh process mamba2-780m ``long_500k`` (batch 1)
+peaks at 1.676 GB on the card against 1.642 GB modelled: that workspace,
+and the step 0.05% over its model (``scripts/ssm_peak_probe.py``, NVIDIA
+H100 80GB HBM3, 700 W). The card's peak also counts whatever else the
+process holds when the step starts.
 """
 from __future__ import annotations
 

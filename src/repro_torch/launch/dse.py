@@ -186,8 +186,11 @@ def _run_plan_cell(args) -> Dict:
     loop = DSELoop(evaluator=evaluator, db=db, llm_stack=stack,
                    cost_model=cost_model, approve_fn=approve,
                    strategy=strategy, gate=gate)
-    report = loop.run(args.arch, args.shape, iterations=args.iterations,
-                      eval_budget=args.budget)
+    try:
+        report = loop.run(args.arch, args.shape, iterations=args.iterations,
+                          eval_budget=args.budget)
+    finally:
+        evaluator.close()  # one dry-run pool served every iteration
     loop_s = time.perf_counter() - t_start
     out: Dict = {
         "arch": report.arch, "shape": report.shape, "mesh": mesh_name,

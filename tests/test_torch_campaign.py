@@ -189,8 +189,8 @@ def test_injected_crash_then_rerun_completes_the_grid(tmp_path):
     token = tmp_path / "crash.token"
     token.write_text("")
     out = tmp_path / "camp"
-    argv = [sys.executable, "-m", "repro_torch.launch.campaign", "--archs",
-            ",".join(KERNELS), "--shapes", ",".join(SHAPES), "--iterations", "1",
+    argv = [sys.executable, "-m", "repro_torch.launch.campaign", "--space", "kernels",
+            "--archs", ",".join(KERNELS), "--shapes", ",".join(SHAPES), "--iterations", "1",
             "--budget", "2", "--strategy", "greedy", "--device", "cpu",
             "--out", str(out)]
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
@@ -236,18 +236,28 @@ def test_injected_bad_default_tile_is_rejected_and_counted(tmp_path, monkeypatch
     ["--objective", "hypervolume"],
 ])
 def test_cli_refuses_what_the_reference_refuses(extra, tmp_path):
-    argv = ["--archs", "vecmul", "--device", "cpu", "--out", str(tmp_path / "o"), *extra]
+    argv = ["--space", "kernels", "--archs", "vecmul", "--device", "cpu",
+            "--out", str(tmp_path / "o"), *extra]
     with pytest.raises(SystemExit) as e:
         campaign.main(argv)
     assert e.value.code == 2
     assert not (tmp_path / "o").exists()
 
 
-def test_cli_defaults_and_the_card(tmp_path):
+def test_cli_defaults_and_the_card(tmp_path, monkeypatch):
     ap = campaign.build_parser()
-    assert (ap.get_default("archs"), ap.get_default("shapes"),
-            ap.get_default("strategy"), ap.get_default("device")) == \
-        ("all", "all", "ensemble", "cuda")
+    assert (ap.get_default("space"), ap.get_default("strategy"),
+            ap.get_default("device")) == ("plans", "ensemble", "cuda")
+    # --space kernels with the plan grid's defaults untouched is the whole
+    # kernel grid, as in the reference
+    seen = {}
+    monkeypatch.setattr(kernel_cell, "run_kernel_campaign",
+                        lambda kernels, shapes, **kw: seen.update(kernels=kernels,
+                                                                 shapes=shapes))
+    campaign.main(["--space", "kernels", "--device", "cpu", "--out", str(tmp_path / "g")])
+    assert (seen["kernels"], seen["shapes"]) == kernel_cell.resolve_kernel_grid("all", "all")
+    monkeypatch.undo()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA card"):
-            campaign.main(["--archs", "vecmul", "--out", str(tmp_path / "o")])
+            campaign.main(["--space", "kernels", "--archs", "vecmul",
+                           "--out", str(tmp_path / "o")])

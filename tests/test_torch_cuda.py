@@ -93,7 +93,8 @@ def test_dse_cell_measures_on_cuda(card, tmp_path):
 
 @pytest.mark.cuda
 def test_kernel_campaign_runs_and_resumes_on_cuda(card, tmp_path):
-    argv = ["--archs", "vecmul,rmsnorm", "--shapes", "vec_64k_f32,rms_1kx256_bf16",
+    argv = ["--space", "kernels", "--archs", "vecmul,rmsnorm",
+            "--shapes", "vec_64k_f32,rms_1kx256_bf16",
             "--iterations", "2", "--budget", "3", "--measure-top-k", "1",
             "--out", str(tmp_path)]
     ops.reset_launch_counts()

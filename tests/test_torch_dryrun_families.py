@@ -13,10 +13,12 @@ reads, which ``jax.jit`` prunes from its arguments: a decode step's
 frontend projection and encoder), alias bytes (less the incoming cross-KV
 at an encoder-decoder prefill: the reference builds it anew, which jit
 prunes, and the port writes it in place), output bytes up to XLA's output
-tuple table (8 bytes a leaf), and the record's keys. Within 10%: FLOPs.
-Within ``WIRE_FACTOR`` (4x) of the reference's: wire bytes per device (a
-train cell's against half of them: XLA:CPU moves a bf16 model's
-activations in f32), every expert rule's too; at most 1.01x the
+tuple table (8 bytes a leaf), the record's keys, and FLOPs, or FLOPs up to
+the named amounts of ``torch_dryrun_parity.FLOPS_EXTRA``. Within
+``WIRE_FACTOR`` (4x) of the reference's: wire bytes per device (a train
+cell's against half of them: XLA:CPU moves a bf16 model's activations in
+f32; an SSM decode's at most the Mamba core's named gathers plus half of
+them), every expert rule's too; at most 1.01x the
 reference's: a train cell's temp bytes.
 The collective kinds may differ only as named: the port reduce-scatters
 where XLA:CPU all-reduces (Megatron-SP's row-parallel sums, ZeRO-1's
@@ -25,7 +27,7 @@ gradients), and never runs XLA's all-to-all or collective-permute
 CPU-typed mesh; attention and the SSD stay head-local, where GSPMD
 reshards them to the sequence)."""
 import pytest
-from torch_dryrun_parity import (CELLS, EXPERT_RULES, FLOPS_REL, PORT_ONLY, REFERENCE_ONLY,
+from torch_dryrun_parity import (CELLS, EXPERT_RULES, FLOPS_EXTRA, PORT_ONLY, REFERENCE_ONLY,
                                  cell, check_bytes_moved, check_record, reference_records)
 
 from repro_torch.configs import SHAPE_BY_NAME, get_config, reduced
@@ -66,7 +68,8 @@ def test_every_expert_rule_traces_as_the_reference(rule, refs, mesh, tmp_path):
                           cfg=cfg, cell=c)
     assert ref["status"] == rec["status"] == "ok", rec.get("error")
     assert rec["memory"]["argument_bytes"] == ref["memory"]["argument_bytes"]
-    assert rec["hlo"]["flops"] == pytest.approx(ref["hlo"]["flops"], rel=FLOPS_REL)
+    assert rec["hlo"]["flops"] - ref["hlo"]["flops"] == \
+        FLOPS_EXTRA.get((f"rule/{rule}", "prefill_32k"), 0)
     port, want = set(rec["hlo"]["collect_bytes"]), set(ref["hlo"]["collect_bytes"])
     assert port - want <= PORT_ONLY and want - port <= REFERENCE_ONLY, (port, want)
     check_bytes_moved(rec, ref, "prefill_32k")

@@ -48,7 +48,8 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
                  "repro_torch.core.cot", "repro_torch.core.llm_stack",
                  "repro_torch.core.mcp", "repro_torch.core.loop",
                  "repro_torch.search.llm_guided", "repro_torch.search.transfer",
-                 "repro_torch.examples", "repro_torch.examples.dse_vecmul"):
+                 "repro_torch.examples", "repro_torch.examples.dse_vecmul",
+                 "repro_torch.launch.executors", "repro_torch.launch.orchestrator"):
         assert name in out["modules"]
 
 
