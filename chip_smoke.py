@@ -175,13 +175,48 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    ``repro_torch.launch.orchestrator --shards 2 --queue`` over the same grid
    on the host (``--measure-top-k 0 --device cpu``) merges to the same
    cells and statuses with no ``error`` row and each cell's best bound
-   equal to (a)'s.
+   equal to (a)'s;
+10. serving and the service (launch counts set to 0 before (a)-(e) and
+   read after: the serve path runs torch math and launches no kernel of
+   the port; the service's kernel workers count their own launches in
+   their heartbeats, summed as the ``service`` path): (a) the continuous
+   batcher (``serve/batcher.py``) serves llama3-8b at full width (bf16, all
+   32 layers, random weights from seed 0) on the card: 8 requests of
+   512-token prompts from a numpy seed, ``max_new`` alternating 4 and 24,
+   4 rows, caches of 1024 positions; it must take fewer decode steps than
+   the static-wave schedule's 46 (2 waves x 23), and each finished request,
+   replayed alone teacher-forced (``launch.serve.teacher_forced_gap``),
+   must find every generated token's logit within 2e-2 of the largest
+   |logit| of its position's max; the same traffic with the admitted rows
+   spliced one slot off must read past that limit. Decode steps, prefills,
+   tokens per second, the first prefill's and the mean decode step's time
+   (CUDA events), the weights', the cache's and the peak bytes are
+   printed; (b) ``repro_torch.launch.serve --arch llama3-8b`` and
+   ``--arch mamba2-780m`` (reduced) on the card, each printing the
+   reference's line; (c) ``train.elastic.rebuild``: qwen3-0.6b at full
+   width trains 2 steps of 4 x 1024 tokens, is checkpointed and rebuilt
+   on the card (``devices=1``) for 2 more, and its 4 losses must equal an
+   uninterrupted run's within 1e-4 relative; (d) the ``serve_demo`` and
+   ``quickstart`` examples on the card; (e) the service
+   (``repro_torch.launch.service serve --device cuda --max-workers 2``) as
+   a subprocess with three tenants, ``kern`` (``--space kernels``:
+   vecmul and rmsnorm on ``vec_64k_f32``, ``rms_512x512_f32`` and
+   ``rms_1kx256_bf16``) and ``alice`` first, then ``bob``, whose plan grid
+   on ``--mesh small`` overlaps alice's, once she has drained (1
+   iteration, budget 2): every tenant drains with 0 restarts, the daemon
+   never imports torch, the fleet's evaluations equal the shared cache's
+   entries and the shared plan cell is traced once, each leaderboard
+   covers its grid, every ``kern`` row passed its gate, and the kern
+   workers launched vecmul and rmsnorm on the card. The phase prints its
+   wall time.
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
 the main path also launched has an entry of its own, ``<kernel>/<route>``),
 ``launches`` sums the main-path runs (phase 3, the campaign, the Pareto
-cell, phase 7 and phase 9, each counted from 0; ``launches_by_path`` splits them), then the
+cell, phase 7, phase 9 and phase 10, each counted from 0; the service's
+launches are those its kernel workers report; ``launches_by_path`` splits
+them), then the
 card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. It imports nothing of jax or of the JAX package.
 """
@@ -965,6 +1000,353 @@ def plan_campaign(card: str):
     return counts, route_counts
 
 
+#: phase 10's service tenants: the kernel tenant on the card and the
+#: reference test's overlapping plan grids, (qwen3-0.6b, train_4k) shared
+SERVICE_TENANTS = {
+    "kern": {"arch": "vecmul,rmsnorm", "shape": "vec_64k_f32,rms_512x512_f32,rms_1kx256_bf16",
+             "space": "kernels"},
+    "alice": {"arch": "qwen3-0.6b", "shape": "train_4k,decode_32k", "mesh": "small"},
+    "bob": {"arch": "qwen3-0.6b,stablelm-3b", "shape": "train_4k", "mesh": "small"},
+}
+SERVICE_PROFILE = {"iterations": 1, "budget": 2}
+#: the teacher-forced check's limit, of the largest |logit| at a position
+SERVE_GAP_LIMIT = 2e-2
+
+
+def _http(url: str, payload=None):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        body = r.read()
+    try:
+        return json.loads(body)
+    except json.JSONDecodeError:
+        return body
+
+
+def serve_cell(card: str) -> None:
+    """Phase 10 (a): the continuous batcher on llama3-8b at full width
+    (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import teacher_forced_gap
+    from repro_torch.models import model as M
+    from repro_torch.serve import batcher as B
+    from repro_torch.serve import step as serve_step
+    from repro_torch.sharding.plan import ShardingPlan
+
+    dev = torch.device("cuda")
+    cfg = get_config("llama3-8b")
+    torch.cuda.empty_cache()
+    params, _ = M.init_params(cfg, seed=0, device=dev)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    torch.cuda.reset_peak_memory_stats()  # serving's peak, not the init's
+    plan = ShardingPlan(rules={})
+    events = {"prefill": [], "decode": []}
+
+    def timed(kind, fn):
+        def call(*args):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args)
+            e.record()
+            events[kind].append((s, e))
+            return out
+        return call
+
+    prefill = serve_step.make_prefill_step(cfg, plan, None)
+    decode = serve_step.make_decode_step(cfg, plan, None)
+
+    def init_cache(b, ml):
+        return M.init_cache(cfg, b, ml, device=dev)
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 512) for _ in range(8)]
+    max_news = [4 if i % 2 == 0 else 24 for i in range(8)]
+    static_steps = 2 * (24 - 1)  # two waves of 4, each to its longest request
+
+    def serve(splice=None):
+        real = B._splice_rows
+        if splice is not None:
+            B._splice_rows = splice
+        try:
+            b = B.Batcher(cfg, params, timed("prefill", prefill), timed("decode", decode),
+                          init_cache, max_batch=4, max_len=1024)
+            reqs = [b.submit(p, max_new=n) for p, n in zip(prompts, max_news)]
+            b.run()
+        finally:
+            B._splice_rows = real
+        return b, reqs
+
+    b, reqs = serve()
+    torch.cuda.synchronize()
+    cache_bytes = sum(t.numel() * t.element_size() for t in init_cache(4, 1024).values())
+    peak = torch.cuda.max_memory_allocated()
+    first_prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
+    decode_ms = [s.elapsed_time(e) for s, e in events["decode"]]
+    prefill_ms = [s.elapsed_time(e) for s, e in events["prefill"]]
+    s = b.stats
+    if (s["requests"], s["tokens"]) != (8, sum(max_news)) or not s["decode_steps"] < static_steps:
+        fail(f"serve cell: {s} (want 8 requests, {sum(max_news)} tokens, fewer decode "
+             f"steps than the static schedule's {static_steps})")
+    gap = teacher_forced_gap(params, prefill, decode, init_cache, reqs, 1024)
+    if not gap <= SERVE_GAP_LIMIT:
+        fail(f"serve cell: a generated token is {gap:.4g} of the largest |logit| below its "
+             f"position's max in the batch-1 replay (limit {SERVE_GAP_LIMIT})")
+
+    # the planted fault: admitted rows spliced one slot off
+    real_splice = B._splice_rows
+    _, bad_reqs = serve(lambda c, sub, rows: real_splice(c, sub, [(r + 1) % 4 for r in rows]))
+    bad_gap = teacher_forced_gap(params, prefill, decode, init_cache, bad_reqs, 1024)
+    if not bad_gap > SERVE_GAP_LIMIT:
+        fail(f"serve cell: the planted wrong-row splice reads {bad_gap:.4g}, within the "
+             f"limit {SERVE_GAP_LIMIT}: the check cannot see it")
+    print("serve cell " + json.dumps({
+        "arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "traffic": "8 requests of 512-token prompts, max_new 4/24 alternating, max_batch 4, "
+                   "max_len 1024",
+        "requests": s["requests"], "tokens": s["tokens"],
+        "decode_steps": s["decode_steps"], "static_wave_decode_steps": static_steps,
+        "prefills": s["prefills"], "tok_per_s": s["tok_per_s"], "wall_s": s["wall_s"],
+        "first_prefill_ms": first_prefill_ms,
+        "prefill_ms": prefill_ms, "mean_decode_step_ms": sum(decode_ms) / len(decode_ms),
+        "weight_bytes": weight_bytes, "cache_bytes": cache_bytes,
+        "max_memory_allocated": peak,
+        "teacher_forced_gap": gap, "limit": SERVE_GAP_LIMIT,
+        "planted_wrong_row_splice_gap": bad_gap, "card": card}), flush=True)
+    del params, b, reqs, bad_reqs
+    torch.cuda.empty_cache()
+
+
+def service_cell(card: str):
+    """Phase 10 (c): the service daemon with three tenants (see the module
+    docstring); returns the kernel workers' summed (launch, route launch)
+    counts, from their heartbeats."""
+    from repro_torch.core.cost_db import CostDB
+
+    t0 = time.perf_counter()
+    root = OUT / "service" / "svc"
+    shutil.rmtree(root.parent, ignore_errors=True)
+    root.parent.mkdir(parents=True)
+    log_path = root.parent / "daemon.log"
+    with log_path.open("w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.service", "serve", "--root", str(root),
+             "--port", "0", "--max-workers", "2", "--poll-interval", "0.2",
+             "--device", "cuda"],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=log,
+            stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 60
+        while not (root / "endpoint.json").exists():
+            if proc.poll() is not None or time.time() > deadline:
+                fail(f"service: the daemon never wrote endpoint.json: "
+                     f"{log_path.read_text()[-1500:]}")
+            time.sleep(0.1)
+        ep = json.loads((root / "endpoint.json").read_text())
+        url = f"http://{ep['host']}:{ep['port']}"
+        boot = _http(url + "/healthz")
+
+        def wait_drained(tenants, deadline):
+            while True:
+                idx = _http(url + "/tenants")["tenants"]
+                if all(t in idx and idx[t]["queue"]["pending"] == 0
+                       and idx[t]["queue"]["leased"] == 0 and idx[t]["workers_active"] == 0
+                       for t in tenants):
+                    return
+                if time.time() > deadline:
+                    fail(f"service: queues never drained: {idx}; "
+                         f"{log_path.read_text()[-1500:]}")
+                time.sleep(0.5)
+
+        # kern and alice share the two slots; bob, whose grid overlaps
+        # alice's, comes once she has drained, so the shared cell replays
+        # from the cache (two workers tracing one design at once would
+        # both miss it)
+        deadline = time.time() + 420
+        for tenant in ("kern", "alice"):
+            _http(url + "/submit", {"tenant": tenant, **SERVICE_TENANTS[tenant],
+                                    **SERVICE_PROFILE})
+        wait_drained(["alice"], deadline)
+        _http(url + "/submit", {"tenant": "bob", **SERVICE_TENANTS["bob"], **SERVICE_PROFILE})
+        wait_drained(list(SERVICE_TENANTS), deadline)
+        drain_s = time.perf_counter() - t0
+        health = _http(url + "/healthz")
+        if boot["torch_loaded"] or health["torch_loaded"]:
+            fail(f"service: the daemon imported torch: {boot} {health}")
+        status = {t: _http(f"{url}/tenants/{t}") for t in SERVICE_TENANTS}
+        want_done = {"kern": 3, "alice": 2, "bob": 2}
+        restarts = sum(w["restarts"] for s in status.values() for w in s["workers"])
+        for t, s in status.items():
+            if (not s["drained"] or s["queue"]["done"] != want_done[t]
+                    or any(w["state"] != "done" for w in s["workers"])):
+                fail(f"service: tenant {t} did not drain cleanly: {s}")
+        if restarts:
+            fail(f"service: {restarts} worker restarts")
+        dry_runs = sum(w["compiles_total"] or 0 for s in status.values() for w in s["workers"])
+        plan_cells: dict = {}
+        entries = 0
+        for f in (root / "dryrun_cache").glob("*.json"):
+            entries += 1
+            rec = json.loads(f.read_text())
+            if "arch" in rec:  # a plan dry run; kernel records carry the check
+                key = (rec["arch"], rec["shape"])
+                plan_cells[key] = plan_cells.get(key, 0) + 1
+        if dry_runs != entries:
+            fail(f"service: the fleet ran {dry_runs} evaluations but the shared cache holds "
+                 f"{entries}: a design was evaluated twice")
+        designs = SERVICE_PROFILE["budget"] + 1
+        if (set(plan_cells) != {("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "decode_32k"),
+                                ("stablelm-3b", "train_4k")}
+                or any(n != designs for n in plan_cells.values())):
+            fail(f"service: the shared cell was not traced once: {plan_cells}")
+        for t, grid in SERVICE_TENANTS.items():
+            lb = _http(f"{url}/tenants/{t}/leaderboard")
+            cells = {(r["arch"], r["shape"]) for r in lb}
+            archs = [("kernel:" + a if t == "kern" else a) for a in grid["arch"].split(",")]
+            want = ({(f"kernel:{'vecmul' if s.startswith('vec') else 'rmsnorm'}", s)
+                     for s in grid["shape"].split(",")} if t == "kern"
+                    else {(a, s) for a in archs for s in grid["shape"].split(",")})
+            if cells != want:
+                fail(f"service: tenant {t}'s leaderboard covers {cells}, not {want}")
+        kern_rows = CostDB(root / "tenants" / "kern" / "merged" / "cost_db.jsonl").all()
+        bad = [(d.shape, d.status, d.reason) for d in kern_rows
+               if d.status != "ok" or d.metrics.get("correct") is not True]
+        if not kern_rows or bad:
+            fail(f"service: kern rows that did not pass the gate: {bad}")
+        counts: dict = {}
+        routes: dict = {}
+        for w in status["kern"]["workers"]:
+            for k, n in (w.get("kernel_launches") or {}).items():
+                counts[k] = counts.get(k, 0) + n
+            for k, n in (w.get("kernel_route_launches") or {}).items():
+                routes[k] = routes.get(k, 0) + n
+        if not (counts.get("vecmul") and counts.get("rmsnorm")):
+            fail(f"service: the kern workers launched {counts} on the card")
+        _http(url + "/shutdown", {})
+        rc = proc.wait(timeout=60)
+        if rc != 0:
+            fail(f"service: the daemon exited {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print("service " + json.dumps({
+        "tenants": {t: {"cells": s["queue"]["done"], "workers": len(s["workers"]),
+                        "profile": s["profile"]} for t, s in status.items()},
+        "max_workers": 2, "fleet_evaluations": dry_runs,
+        "shared_cache_entries": entries, "plan_cells_traced": {
+            f"{a}/{sh}": n for (a, sh), n in sorted(plan_cells.items())},
+        "kern_rows": len(kern_rows), "kern_rows_gate_passed": len(kern_rows),
+        "kern_worker_launches": counts, "kern_worker_route_launches": routes,
+        "restarts": restarts, "torch_loaded": health["torch_loaded"],
+        "drain_wall_s": drain_s, "wall_s": time.perf_counter() - t0, "card": card}),
+        flush=True)
+    return counts, routes
+
+
+def elastic_cell(card: str) -> None:
+    """Phase 10 (d): qwen3-0.6b at full width, 2 steps, a checkpoint, and 2
+    more after ``train.elastic.rebuild(devices=1)`` onto the card, against
+    4 uninterrupted steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.plan import ShardingPlan, baseline_rules
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.elastic import rebuild
+    from repro_torch.train.optimizer import AdamWConfig
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config("qwen3-0.6b")
+    plan = ShardingPlan(rules=baseline_rules(), remat="none")
+    opt = AdamWConfig(warmup_steps=1, total_steps=4)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=4))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev) for k, v in data.batch(i).items()}
+
+    step = step_mod.make_train_step(cfg, plan, None, opt)
+    state, _ = step_mod.init_train_state(cfg, plan, seed=0, device=dev)
+    want = []
+    for i in range(4):
+        state, m = step(state, batch(i))
+        want.append(float(m["loss"]))
+    state, _ = step_mod.init_train_state(cfg, plan, seed=0, device=dev)
+    got = []
+    for i in range(2):
+        state, m = step(state, batch(i))
+        got.append(float(m["loss"]))
+    ckpt = OUT / "elastic"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t = time.perf_counter()
+    ckpt_mod.save_checkpoint(ckpt, 2, state)
+    save_s = time.perf_counter() - t
+    del state
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    state, mesh, step_fn, start = rebuild(cfg, plan, str(ckpt), devices=1, opt_cfg=opt,
+                                          device="cuda")
+    rebuild_s = time.perf_counter() - t
+    if start != 2 or mesh.size() != 1:
+        fail(f"elastic: rebuilt at step {start} on {mesh.size()} devices")
+    for i in range(2, 4):
+        state, m = step_fn(state, batch(i))
+        got.append(float(m["loss"]))
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*.npy"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    del state
+    torch.cuda.empty_cache()
+    if not rel <= 1e-4:
+        fail(f"elastic: losses {got} against the uninterrupted run's {want} (rel {rel:.3g})")
+    print("elastic " + json.dumps({
+        "arch": cfg.name, "batch": "4 x 1024", "losses_rebuilt": got,
+        "losses_uninterrupted": want, "max_rel": rel, "limit": 1e-4,
+        "checkpoint_bytes": ckpt_bytes, "save_s": save_s, "rebuild_s": rebuild_s,
+        "wall_s": time.perf_counter() - t0, "card": card}), flush=True)
+
+
+def serving(card: str):
+    """Phase 10 (see the module docstring); returns the launch and route
+    counts of the serve path (none) and of the service's kernel workers."""
+    from repro_torch.examples import quickstart, serve_demo
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    serve_cell(card)
+    for arch in ("llama3-8b", "mamba2-780m"):
+        t = time.perf_counter()
+        s = serve_cli.main(["--arch", arch, "--device", "cuda"])
+        if (s["requests"], s["tokens"]) != (8, 96):
+            fail(f"launch.serve --arch {arch}: {s}")
+        print(f"launch.serve --arch {arch} (reduced) on cuda: {time.perf_counter() - t:.1f} s",
+              flush=True)
+    elastic_cell(card)
+    demo = serve_demo.main(["--device", "cuda"])
+    quick = quickstart.main(["--device", "cuda"])
+    if demo["requests"] != 10 or not quick["last_loss"] < quick["first_loss"]:
+        fail(f"examples on cuda: serve_demo {demo}, quickstart {quick}")
+    counts, route_counts = ops.launch_counts(), ops.route_launch_counts()
+    launched = {k: n for k, n in counts.items() if n}
+    if launched:
+        fail(f"the serve path launched kernels of the port: {launched}")
+    print("serve path: 0 kernel launches", flush=True)
+    service = service_cell(card)
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"serve": (counts, route_counts), "service": service}
+
+
 def main() -> None:
     import torch
 
@@ -1580,6 +1962,9 @@ def main() -> None:
 
     # ---- phase 9: the plan campaign and its supervisor ----
     path_counts["plan_campaign"] = plan_campaign(card)
+
+    # ---- phase 10: serving and the service ----
+    path_counts.update(serving(card))
     for r in results:
         kernel, route = r["name"].split("/")[0], r["kernel_route"]
         r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel, route)

@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Mapping, Optional, Tuple
 
 from repro_torch.core.device import H100_SXM, DeviceModel
-from repro_torch.kernels.resource_model import RESOURCE_FNS, KernelResources
+
+if TYPE_CHECKING:
+    from repro_torch.kernels.resource_model import KernelResources
 
 #: arch-column prefix that marks a row/ticket/report as a kernel cell
 KERNEL_ARCH_PREFIX = "kernel:"
@@ -143,7 +145,11 @@ def tile_grid(shape: KernelShape) -> List[Dict[str, Any]]:
 def kernel_resources(shape: KernelShape, dims: Mapping[str, Any],
                      device: DeviceModel = H100_SXM) -> KernelResources:
     """Run the Hopper resource model for one candidate point: the
-    feasibility check and latency estimate for kernel cells."""
+    feasibility check and latency estimate for kernel cells. The model is
+    imported here: it holds torch dtypes, and the registry above is read by
+    torch-free supervisors (the service daemon resolves kernel grids)."""
+    from repro_torch.kernels.resource_model import RESOURCE_FNS
+
     fn = RESOURCE_FNS[shape.kernel]
     p = shape.params
     if shape.kernel == "vecmul":

@@ -31,12 +31,8 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.cost_db import CostDB, featurize
-from repro_torch.core.cost_model import CostModel
-from repro_torch.core.design_space import (KernelTemplate, PlanPoint,
-                                           baseline_kernel_point)
 from repro_torch.core.device import resolve_device
 from repro_torch.core.eval_cache import DryRunCache
-from repro_torch.core.evaluator import KernelEvaluator
 from repro_torch.core.kernel_space import (CI_KERNEL_SHAPES, KERNEL_NAMES,
                                            KERNEL_SHAPE_BY_NAME, kernel_arch,
                                            kernel_workload, parse_kernel_arch)
@@ -49,8 +45,10 @@ from repro_torch.launch.campaign import (_injected_crash_hook,
                                          write_progress)
 from repro_torch.launch.ioutil import write_json_atomic
 from repro_torch.launch.scheduler import CellQueue, sanitize_owner
-from repro_torch.search import (PromotionLadder, SearchState, SurrogateGate,
-                                make_strategy, select_candidates)
+
+# The evaluator, the surrogate, the strategies and the tile template import
+# torch, so the two functions that run cells import them: the grid helpers
+# below serve torch-free supervisors too (the service daemon).
 
 __all__ = [
     "KERNEL_MESH_NAME", "KERNEL_STRATEGY_CHOICES", "kernel_grid_cells",
@@ -145,6 +143,12 @@ def run_kernel_campaign(kernels: Sequence[str], shapes: Sequence[str], *,
     in queue mode, one-shot crash hook at cell boundaries, atomic JSON
     artifacts throughout. ``device`` is ``cuda`` (the Hopper kernels; an
     error without a card) or ``cpu`` (their plain versions)."""
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.core.design_space import PlanPoint
+    from repro_torch.core.evaluator import KernelEvaluator
+    from repro_torch.kernels import ops
+    from repro_torch.search import PromotionLadder, SurrogateGate, make_strategy
+
     if queue is not None and shard is not None:
         raise ValueError("--queue and --shard are mutually exclusive: the "
                          "queue replaces the static grid cut")
@@ -245,6 +249,10 @@ def run_kernel_campaign(kernels: Sequence[str], shapes: Sequence[str], *,
             "evaluations_total": evals,
             "compiles_total": compiles_prior + compiles,
             "pruned_total": pruned_prior + pruned,
+            # this process's kernel launches, per kernel and per route (the
+            # port's own fields: a supervisor sums its workers' with them)
+            "kernel_launches": ops.launch_counts(),
+            "kernel_route_launches": ops.route_launch_counts(),
             "best": top, "ts": round(time.time(), 3)}
         if q is not None:
             payload["queue"] = {**q.counts(), "owner": owner,
@@ -451,6 +459,9 @@ def _explore_kernel_cell(arch: str, shape: str, *, evaluator, db, cost_model,
                          log=print) -> Dict:
     """The per-cell search loop. Returns the report dict (``baseline`` /
     ``best`` / ``iterations`` / ``improvement``) in the reference's shape."""
+    from repro_torch.core.design_space import KernelTemplate, baseline_kernel_point
+    from repro_torch.search import SearchState, select_candidates
+
     kshape = KERNEL_SHAPE_BY_NAME[shape]
     template = KernelTemplate(kshape, evaluator.device)
     wl = kernel_workload(kshape)

@@ -1,5 +1,7 @@
 """repro_torch stands alone: importing every one of its modules leaves jax
-and repro out of sys.modules, and no source line imports them."""
+and repro out of sys.modules, and no source line imports them (nor one of
+``chip_smoke.py`` or ``scripts/torch_service_smoke.py``). The service
+daemon's modules import no torch either."""
 import json
 import os
 import re
@@ -49,13 +51,36 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
                  "repro_torch.core.mcp", "repro_torch.core.loop",
                  "repro_torch.search.llm_guided", "repro_torch.search.transfer",
                  "repro_torch.examples", "repro_torch.examples.dse_vecmul",
-                 "repro_torch.launch.executors", "repro_torch.launch.orchestrator"):
+                 "repro_torch.launch.executors", "repro_torch.launch.orchestrator",
+                 "repro_torch.core.fairshare", "repro_torch.serve.batcher",
+                 "repro_torch.launch.serve", "repro_torch.launch.service",
+                 "repro_torch.train.elastic", "repro_torch.sharding.pipeline",
+                 "repro_torch.examples.quickstart", "repro_torch.examples.dse_sharding",
+                 "repro_torch.examples.serve_demo", "repro_torch.examples.train_100m"):
         assert name in out["modules"]
 
 
 def test_no_source_line_imports_jax_or_repro():
     pat = re.compile(r"^\s*(import|from) (jax|repro)(\.|\s|$)")
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "scripts" / "torch_service_smoke.py"]
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
     assert hits == []
+
+
+SUPERVISOR = """
+import json, sys
+import repro_torch.launch.service, repro_torch.launch.kernel_cell
+print(json.dumps(sorted(k for k in sys.modules if k in ("torch", "jax", "repro"))))
+"""
+
+
+def test_the_service_daemon_imports_no_torch():
+    """The daemon resolves kernel grids too (``launch.kernel_cell``'s grid
+    helpers), so neither module may pull torch in at import."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    r = subprocess.run([sys.executable, "-c", SUPERVISOR], capture_output=True, text=True,
+                       timeout=120, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
