@@ -208,7 +208,18 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    entries and the shared plan cell is traced once, each leaderboard
    covers its grid, every ``kern`` row passed its gate, and the kern
    workers launched vecmul and rmsnorm on the card. The phase prints its
-   wall time.
+   wall time;
+11. the static analysis, on the host (no card): the port's invariant
+   linter (``repro_torch.analysis.lint.lint_paths``) over
+   ``src/repro_torch`` against ``analysis_baseline_torch.json``, applied
+   and not rewritten: no new finding and no stale entry; the race
+   explorer's six scenarios over the port's ``CellQueue``, each exhaustive,
+   with no violation and the reference's numbers of schedules; its
+   ``--broken`` self-test, which must find a counterexample in both
+   broken scenarios; and every module of RPR004's torch-free list
+   imported in a subprocess with torch and triton blocked. One line gives
+   the files linted, the findings, the schedules per scenario, the
+   counterexample's length and the seconds taken.
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
@@ -222,6 +233,7 @@ card's name and power limit, and last ``{"ok": true, "device":
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -1347,6 +1359,77 @@ def serving(card: str):
     return {"serve": (counts, route_counts), "service": service}
 
 
+#: the schedules each race scenario explores exhaustively (the same on the
+#: reference's queue and the port's)
+RACE_SCHEDULES = {"two_acquirers": 84, "acquire_vs_reclaim": 651, "complete_vs_steal": 7,
+                  "renew_vs_steal": 4, "release_vs_complete": 9, "two_cells": 342}
+
+#: imports every module named in argv[1] with torch and triton unimportable
+TORCH_BLOCKED_IMPORT = """
+import importlib, json, sys
+sys.modules["torch"] = None
+sys.modules["triton"] = None
+for m in json.loads(sys.argv[1]):
+    importlib.import_module(m)
+print(json.dumps(sorted(k for k, v in sys.modules.items() if v is not None
+                        and k.split(".")[0] in ("torch", "triton", "jax", "repro"))))
+"""
+
+
+def static_analysis() -> None:
+    """Phase 11: the linter over ``src/repro_torch`` against the shipped
+    baseline, the race sweep and its ``--broken`` self-test, and the
+    torch-free list imported with torch blocked. Uses no card."""
+    from repro_torch.analysis import race
+    from repro_torch.analysis.baseline import apply_baseline, load_baseline
+    from repro_torch.analysis.lint import DEFAULT_SCAN, discover, lint_paths
+    from repro_torch.analysis.rules.imports import torch_free_modules
+
+    t_phase = time.perf_counter()
+    findings = lint_paths(ROOT)
+    new, known, stale = apply_baseline(
+        findings, load_baseline(ROOT / "analysis_baseline_torch.json"))
+    if new or stale:
+        fail("lint: " + "; ".join([f.render() for f in new]
+                                  + [f"stale baseline entry {e}" for e in stale]))
+    n_files = len(discover(ROOT, DEFAULT_SCAN))
+
+    schedules = {}
+    for name, build in sorted(race.SCENARIOS.items()):
+        res = race.explore(build, scenario=name)
+        if not res.ok:
+            fail(f"race: {name}: {res.counterexample.violation}\n"
+                 f"{res.counterexample.render_schedule()}")
+        schedules[name] = res.schedules
+    if schedules != RACE_SCHEDULES:
+        fail(f"race: schedules {schedules}, not {RACE_SCHEDULES}")
+    steps = {}
+    for name in ("two_acquirers", "two_cells"):
+        broken = functools.partial(race.SCENARIOS[name], queue_cls=race.BrokenCellQueue)
+        res = race.explore(broken, scenario=name)
+        if res.ok:
+            fail(f"race --broken: no counterexample in {name}")
+        mini = race.minimize(broken, res.counterexample.choices)
+        if "one-state-per-ticket" not in (mini.violation or ""):
+            fail(f"race --broken: {name}: {mini.violation}")
+        steps[name] = len(mini.trace)
+
+    mods = torch_free_modules(ROOT)
+    r = subprocess.run([sys.executable, "-c", TORCH_BLOCKED_IMPORT, json.dumps(mods)],
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if r.returncode != 0:
+        fail(f"torch-free import exited {r.returncode}: {r.stderr[-2000:]}")
+    loaded = json.loads(r.stdout.strip().splitlines()[-1])
+    if loaded:
+        fail(f"torch-free import loaded {loaded}")
+    print(f"analysis: {n_files} files linted, {len(findings)} findings ({len(new)} new, "
+          f"{len(known)} baselined); race schedules {json.dumps(schedules)}; --broken "
+          f"counterexample {steps['two_acquirers']} steps (two_cells "
+          f"{steps['two_cells']}); {len(mods)} torch-free modules imported with torch "
+          f"blocked; phase 11 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1965,6 +2048,9 @@ def main() -> None:
 
     # ---- phase 10: serving and the service ----
     path_counts.update(serving(card))
+
+    # ---- phase 11: the static analysis (no card) ----
+    static_analysis()
     for r in results:
         kernel, route = r["name"].split("/")[0], r["kernel_route"]
         r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel, route)

@@ -34,8 +34,6 @@ import traceback
 from pathlib import Path
 from typing import Any, Dict
 
-import torch
-
 DEFAULT_RUNS = 3
 
 # process-local count of actual timed executions of plan cells
@@ -44,6 +42,8 @@ N_MEASUREMENTS = 0
 
 def _time_call(fn, device: torch.device) -> float:
     """Seconds one call of ``fn`` takes on ``device``."""
+    import torch
+
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -60,6 +60,8 @@ def _time_call(fn, device: torch.device) -> float:
 
 def _zeros(tree, dev):
     """Zeros of every meta leaf of a nested dict, on ``dev``."""
+    import torch
+
     if isinstance(tree, dict):
         return {k: _zeros(v, dev) for k, v in tree.items()}
     return torch.zeros(tree.shape, dtype=tree.dtype, device=dev)
@@ -87,6 +89,7 @@ def zero_step(arch: str, shape_name: str, mesh, plan=None, *, cfg=None, cell=Non
     the port does not run. A serve step runs under ``torch.no_grad()``; a
     train step is a whole one (forward, backward, AdamW) that updates its
     zero-initialised state in place, so repeated calls keep its shapes."""
+    import torch
     from repro_torch.launch import dryrun
 
     if mesh.size() != 1:
@@ -122,6 +125,8 @@ def measure_cell(arch: str, shape_name: str, mesh, mesh_name: str,
     peak allocation over the warm and timed calls, ``None`` on the CPU),
     ``skipped`` (unsupported cell), or ``error``.
     """
+    import torch
+
     global N_MEASUREMENTS
     if runs < 1:
         raise ValueError(f"runs must be >= 1, got {runs}")
@@ -312,6 +317,7 @@ def cut_config(arch: str, n_layers: int):
 def model_inputs(cfg, tokens: int, gen: torch.Generator) -> Dict[str, torch.Tensor]:
     """One sequence's CPU inputs: ``tokens`` int32 tokens, and a frontend
     stub's embeddings [1, F, 1024] (N(0, 1) f32) for vlm and audio."""
+    import torch
     from repro_torch.models.transformer import FRONTEND_DIM
 
     out = {"tokens": torch.randint(0, cfg.vocab, (1, tokens), generator=gen,
@@ -333,6 +339,7 @@ def _serve_run(cfg, params, batch, tokens: int, steps: int, device):
     """A ``tokens``-token prefill then ``steps`` decode steps on ``device``:
     (each step's logits as f32 CPU tensors, the final cache, the MoE
     routing of every call)."""
+    import torch
     from repro_torch.models import model as M
     from repro_torch.models.moe import record_routing
 
@@ -386,6 +393,7 @@ def check_against_cpu(arch: str = "llama3-8b", *, n_layers: int = 2, tokens: int
     ``bf16`` and ``gap`` where run (each ``{"logits", "cache", "worst"}``),
     ``limit`` (``{"f32", "bf16"}``), ``finite`` (every device run), the
     caches' lengths (device, CPU), ``dtype`` and ``ok``."""
+    import torch
     from repro_torch.models import model as M
 
     cfg = cut_config(arch, n_layers)
@@ -457,6 +465,8 @@ def _update_rel(old: torch.Tensor, want: torch.Tensor, got: torch.Tensor) -> flo
     """A step's update, ``got - old`` (``got`` rounded to its dtype) against
     ``want - old`` (``want`` in f32): max |error| less half a unit in the
     last place of ``got`` 's dtype at ``want``, over max |want - old|."""
+    import torch
+
     if not want.numel():
         return 0.0
     _, e = torch.frexp(want)
@@ -492,6 +502,7 @@ def check_train_against_cpu(cfg, *, n_layers: int = 2, tokens: int = 2048,
     each (``worst``: ``(leaf, error)``); whether the device's values were
     finite; and ``ok``: every error finite, the two scalars below
     ``MODEL_REL`` and each leaf below ``TRAIN_LEAF_REL``."""
+    import torch
     from repro_torch.models import model as M
     from repro_torch.sharding.plan import ShardingPlan
     from repro_torch.train import optimizer as opt_mod
@@ -579,6 +590,8 @@ def measure_kernel_cell(kshape, dims: Dict[str, Any], *,
     """
     if runs < 1:
         raise ValueError(f"runs must be >= 1, got {runs}")
+    import torch
+
     from repro_torch.kernels import conformance
 
     t0 = time.time()

@@ -58,9 +58,8 @@ every compile the first owner already paid for replays as a cache hit —
 completed work is never redone, only re-read.
 
 Every file-system touch goes through an injectable :class:`QueueFS` seam
-(:class:`LocalFS` by default — plain stdlib calls). The seam exists for a
-model checker (the reference's ``repro/analysis/race.py``), which
-substitutes an instrumented in-memory filesystem and exhaustively explores
+(:class:`LocalFS` by default — plain stdlib calls). The seam exists for the
+``repro_torch.analysis.race`` model checker, which substitutes an instrumented in-memory filesystem and exhaustively explores
 interleavings of the queue protocol's atomic steps; production behavior is
 byte-identical to the direct stdlib calls the seam replaced.
 
@@ -101,8 +100,8 @@ class LocalFS:
     """The queue's filesystem primitives, one thin method per atomic step.
 
     :class:`CellQueue` performs **every** disk touch through one of these
-    methods so that a race explorer can swap in
-    an instrumented in-memory implementation and schedule the protocol's
+    methods so that the race explorer (``repro_torch.analysis.race``) can
+    swap in an instrumented in-memory implementation and schedule the protocol's
     atomic steps one at a time. Each method is a single stdlib call (plus
     the error contract noted in its docstring) — there is deliberately no
     logic here, because anything above the primitives would run *between*

@@ -13,12 +13,12 @@ without it the full config trains on the one device.
         --reduced --steps 20 --batch 8 --seq 64 --device cpu
 """
 import argparse
-import json
 import sys
 from pathlib import Path
 
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs import reduced as reduce_cfg
+from repro_torch.launch.ioutil import write_json_atomic
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,7 +80,7 @@ def main(argv=None) -> None:
     h = out["history"]
     if args.history:
         Path(args.history).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.history).write_text(json.dumps(h))
+        write_json_atomic(args.history, h)
     if not h:
         print(f"final: step {out['final_step']}, no step left to run")
         sys.exit(0)

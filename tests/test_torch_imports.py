@@ -1,7 +1,9 @@
 """repro_torch stands alone: importing every one of its modules leaves jax
 and repro out of sys.modules, and no source line imports them (nor one of
-``chip_smoke.py`` or ``scripts/torch_service_smoke.py``). The service
-daemon's modules import no torch either."""
+``chip_smoke.py`` or ``scripts/torch_service_smoke.py``). Every module on
+the linter's torch-free list (RPR004: the service daemon's, the
+supervisors', ``launch/measure.py`` and ``analysis``) imports with torch
+and triton blocked."""
 import json
 import os
 import re
@@ -56,7 +58,13 @@ def test_importing_every_module_pulls_in_neither_jax_nor_repro():
                  "repro_torch.launch.serve", "repro_torch.launch.service",
                  "repro_torch.train.elastic", "repro_torch.sharding.pipeline",
                  "repro_torch.examples.quickstart", "repro_torch.examples.dse_sharding",
-                 "repro_torch.examples.serve_demo", "repro_torch.examples.train_100m"):
+                 "repro_torch.examples.serve_demo", "repro_torch.examples.train_100m",
+                 "repro_torch.analysis", "repro_torch.analysis.lint",
+                 "repro_torch.analysis.baseline", "repro_torch.analysis.race",
+                 "repro_torch.analysis.rules", "repro_torch.analysis.rules.atomic_writes",
+                 "repro_torch.analysis.rules.determinism",
+                 "repro_torch.analysis.rules.exceptions",
+                 "repro_torch.analysis.rules.imports"):
         assert name in out["modules"]
 
 
@@ -69,18 +77,33 @@ def test_no_source_line_imports_jax_or_repro():
     assert hits == []
 
 
-SUPERVISOR = """
-import json, sys
-import repro_torch.launch.service, repro_torch.launch.kernel_cell
-print(json.dumps(sorted(k for k in sys.modules if k in ("torch", "jax", "repro"))))
+TORCH_FREE = """
+import importlib, json, sys
+sys.modules["torch"] = None  # any import of torch or triton now raises
+sys.modules["triton"] = None
+mods = json.loads(sys.argv[1])
+for m in mods:
+    importlib.import_module(m)
+print(json.dumps(sorted(k for k, v in sys.modules.items() if v is not None
+                        and k.split(".")[0] in ("torch", "triton", "jax", "repro"))))
 """
 
 
 def test_the_service_daemon_imports_no_torch():
-    """The daemon resolves kernel grids too (``launch.kernel_cell``'s grid
-    helpers), so neither module may pull torch in at import."""
+    """The static claim of RPR004, checked at run time: every module on the
+    torch-free list imports in a process where torch and triton cannot be
+    imported. The daemon resolves kernel grids too (``launch.kernel_cell``'s
+    grid helpers), and supervisors import ``launch.measure`` for its parser."""
+    from repro_torch.analysis.rules.imports import torch_free_modules
+
+    mods = torch_free_modules(REPO)
+    for name in ("repro_torch.launch.service", "repro_torch.launch.kernel_cell",
+                 "repro_torch.launch.measure", "repro_torch.launch.orchestrator",
+                 "repro_torch.core.fairshare", "repro_torch.analysis.race",
+                 "repro_torch.analysis.rules.imports"):
+        assert name in mods
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
-    r = subprocess.run([sys.executable, "-c", SUPERVISOR], capture_output=True, text=True,
-                       timeout=120, env=env)
+    r = subprocess.run([sys.executable, "-c", TORCH_FREE, json.dumps(mods)],
+                       capture_output=True, text=True, timeout=120, env=env)
     assert r.returncode == 0, r.stderr[-2000:]
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
