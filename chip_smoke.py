@@ -14,11 +14,12 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    ``conformance.PLAIN_REL`` of each row's largest value (for the SSD scan
    y and the final state, with and without an ``initial_state``, and the
    oracle gate at every feasible chunk), each through the route the
-   resource model names (flash attention and the SSD scan: ``wgmma`` or
-   ``fma``; rmsnorm: ``registers``, ``two-pass`` or ``scalar``), the
-   others must be refused; then bf16 flash attention's card cases on both
-   routes (``sq != sk``, ``q_offset`` of 64, 0 and -32, non-causal, odd
-   K-tile walks, d = 64, 96 and 128, 256-row, 32-row and one-row query
+   resource model names (flash attention: ``wgmma``, ``mma`` or ``fma``;
+   the SSD scan: ``wgmma`` or ``fma``; rmsnorm: ``registers``, ``two-pass``
+   or ``scalar``), the others must be refused; then flash attention's card
+   cases in bf16 and f32, each on the route ``flash_attention.route``
+   names (``sq != sk``, ``q_offset`` of 64, 0 and -32, non-causal, odd
+   K-tile walks, d = 64, 96, 128 and 192, 256-row, 32-row and one-row query
    blocks), the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
    state size, with and without an initial state, five chunks of three
    heads) and rmsnorm at 8193 x 4096 on every path and ``block_rows``;
@@ -26,7 +27,7 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    full-width shape (vecmul and rmsnorm: greedy, 2 iterations; flash
    attention and the SSD scan: the default ensemble with the surrogate
    gate, 3 iterations, the gate's factor 1.5 for flash attention, whose
-   feasible tiles are modelled within 1.7x of each other, and 3.0 for the
+   feasible tiles are modelled within 2.0x of each other, and 3.0 for the
    SSD scan; budget 3 and the 2 best measured by the
    promotion ladder for all): launch counts are set to 0 just before each
    run and read just after (flash attention and the SSD scan must have run
@@ -41,7 +42,8 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    ensemble with the surrogate gate at 3.0, 3 iterations, budget 3, the 2
    best of each cell measured. Launch counts are set to 0 just before it
    and read just after: every kernel must have launched, flash attention
-   and the SSD scan on ``wgmma`` and rmsnorm on ``registers``, no row may
+   on ``wgmma`` and on ``mma`` (the f32 cell), the SSD scan on ``wgmma``
+   and rmsnorm on ``registers``, no row may
    be an ``error``, measured rows must say ``backend: cuda`` and
    ``BENCH_kernels.json`` must hold 10 cells; the campaign's record (wall
    time, rows by status, the correctness audit, the gate's state after the
@@ -49,13 +51,18 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    again must resume all 10 cells with no launch and no evaluation. Then
    one full-width ``dse --objective pareto`` cell on flash attention
    (ensemble, 3 iterations, the 2 leading front members measured), whose
-   launches must all be on ``wgmma``; its front and measured members are
+   launches must be on ``wgmma`` (and may be on ``mma``, which takes the
+   cell's 256- and 512-row tiles); its front and measured members are
    printed;
 4. at each full-width default point, the kernel's, the plain version's and
    (where one exists) one PyTorch library call's times from CUDA events,
    beside the roofline bound; then the flash kernel's time, TFLOP/s,
    shared memory, registers (model and compiler), CTAs per SM and route at
-   every feasible full-width tile, rmsnorm's time, share of bound,
+   every feasible full-width tile; flash attention's ``mma`` route at
+   ``attn_s128_f32``'s default tile (kernel, plain version, SDPA, bound,
+   launches) and its time at every feasible tile of ``attn_s128_f32`` and
+   ``attn_s256_gqa_bf16`` beside SDPA's and the resource model's
+   estimate; rmsnorm's time, share of bound,
    ``F.rms_norm`` and the two-pass path's time on the same rows at every
    ``block_rows``, the SSD scan's at every chunk with its route, each
    launch's time from the profiler, registers and the resource model's
@@ -1543,42 +1550,45 @@ def main() -> None:
               f"{n_refused} infeasible points refused; runs per route {routes}", flush=True)
         del inputs, variants
 
-    # the bf16 flash cases on both routes: sq != sk, q_offset, non-causal,
-    # odd K-tile walks (5 tiles of 64 against 2 stages) at d = 64 and 128 on
-    # wgmma; d = 96, a 256-row tile and short query blocks (32 rows, one
-    # row) on the FMA kernel
-    n_ok = 0
-    worst = 0.0
-    routes = {}
-    for d in (64, 96, 128):
-        for sq, sk, q_offset, causal in [(128, 256, 0, True), (128, 320, 64, True),
-                                         (128, 256, -32, True), (192, 320, 0, False),
-                                         (256, 128, 0, True), (32, 256, 224, True),
-                                         (1, 256, 255, True)]:
-            gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
-            q, k, v = ((0.3 * torch.randn(2, s_, hh, d, generator=gen, device=dev)
-                        ).to(torch.bfloat16) for s_, hh in ((sq, 4), (sk, 2), (sk, 2)))
-            for bq in (64, 128, 256):
-                for bk in fa.WGMMA_BLOCKS:
-                    bq_, bk_ = min(bq, sq), min(bk, sk)
-                    if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or not \
-                            flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_).feasible:
-                        continue
-                    kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
-                    key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
-                    before = _build.LAUNCHES[key]
-                    agree = conformance.agree_with_plain(
-                        fa.flash_attention_cuda(q, k, v, **kw),
-                        fa.flash_attention_plain(q, k, v, **kw))
-                    if not agree["passed"] or _build.LAUNCHES[key] != before + 1:
-                        fail(f"flash bf16 d={d} sq={sq} sk={sk} {kw} on {key}: {agree}")
-                    worst = max(worst, agree["ratio"])
-                    routes[key] = routes.get(key, 0) + 1
-                    n_ok += 1
-    print(f"cases flash_attention bf16: {n_ok} runs (sq != sk, q_offset 64/0/-32, "
-          f"non-causal, odd walks, d 64/96/128, block_q 256, 32 and 1 query rows) "
-          f"agree with the plain version row by row (worst row err/limit {worst:.3g}); "
-          f"runs per route {routes}", flush=True)
+    # the flash cases: sq != sk, q_offset, non-causal, odd K-tile walks (5
+    # tiles of 64 against 2 stages) at d = 64 and 128 on wgmma (bf16); d =
+    # 96, a 256-row tile and short query blocks (32 rows, one row) on the
+    # mma kernel, and f32 on it where its K/V stages fit; d = 192 and the
+    # larger f32 stages on the FMA kernel
+    for dtype in (torch.bfloat16, torch.float32):
+        n_ok = 0
+        worst = 0.0
+        routes = {}
+        for d in (64, 96, 128, 192):
+            for sq, sk, q_offset, causal in [(128, 256, 0, True), (128, 320, 64, True),
+                                             (128, 256, -32, True), (192, 320, 0, False),
+                                             (256, 128, 0, True), (32, 256, 224, True),
+                                             (1, 256, 255, True)]:
+                gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
+                q, k, v = ((0.3 * torch.randn(2, s_, hh, d, generator=gen, device=dev)
+                            ).to(dtype) for s_, hh in ((sq, 4), (sk, 2), (sk, 2)))
+                for bq in (64, 128, 256):
+                    for bk in fa.WGMMA_BLOCKS:
+                        bq_, bk_ = min(bq, sq), min(bk, sk)
+                        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or not \
+                                flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_,
+                                                          q.element_size()).feasible:
+                            continue
+                        kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
+                        key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
+                        before = _build.LAUNCHES[key]
+                        agree = conformance.agree_with_plain(
+                            fa.flash_attention_cuda(q, k, v, **kw),
+                            fa.flash_attention_plain(q, k, v, **kw))
+                        if not agree["passed"] or _build.LAUNCHES[key] != before + 1:
+                            fail(f"flash {dtype} d={d} sq={sq} sk={sk} {kw} on {key}: {agree}")
+                        worst = max(worst, agree["ratio"])
+                        routes[key] = routes.get(key, 0) + 1
+                        n_ok += 1
+        print(f"cases flash_attention {str(dtype).split('.')[1]}: {n_ok} runs (sq != sk, "
+              f"q_offset 64/0/-32, non-causal, odd walks, d 64/96/128/192, block_q 256, 32 "
+              f"and 1 query rows) agree with the plain version row by row (worst row "
+              f"err/limit {worst:.3g}); runs per route {routes}", flush=True)
     # the bf16 SSD scan on its wgmma route at every instantiated (chunk, N),
     # with and without an initial state, over five chunks of three heads
     n_ok = 0
@@ -1627,8 +1637,9 @@ def main() -> None:
     search = {
         "vecmul": ["--strategy", "greedy", "--iterations", "2"],
         "rmsnorm": ["--strategy", "greedy", "--iterations", "2"],
-        # the cell's eight feasible (wgmma) tiles are modelled within 1.7x
-        # of each other: a factor of 3.0 could never prune there
+        # the cell's feasible tiles (eight on wgmma, four on mma, each
+        # causal or not) are modelled within 2.0x of each other: a factor
+        # of 3.0 could never prune there
         "flash_attention": ["--strategy", "ensemble", "--gate-factor", "1.5",
                             "--iterations", "3"],
         "ssd_scan": ["--strategy", "ensemble", "--gate-factor", "3.0",
@@ -1717,7 +1728,8 @@ def main() -> None:
     for kernel in full:
         if counts[kernel] == 0:
             fail(f"campaign: {kernel} was launched no time")
-    for key in ("flash_attention/wgmma", "ssd_scan/wgmma", "rmsnorm/registers"):
+    for key in ("flash_attention/wgmma", "flash_attention/mma", "ssd_scan/wgmma",
+                "rmsnorm/registers"):
         if route_counts.get(key, 0) == 0:
             fail(f"campaign: {key} was launched no time")
     rows = CostDB(camp_dir / "cost_db.jsonl").all()
@@ -1777,9 +1789,11 @@ def main() -> None:
     pareto_wall = time.perf_counter() - t
     counts, route_counts = ops.launch_counts(), ops.route_launch_counts()
     path_counts["pareto_cell"] = (counts, route_counts)
-    off_route = {k: n for k, n in route_counts.items() if n and k != "flash_attention/wgmma"}
+    off_route = {k: n for k, n in route_counts.items()
+                 if n and k not in ("flash_attention/wgmma", "flash_attention/mma")}
     if route_counts.get("flash_attention/wgmma", 0) == 0 or off_route:
-        fail(f"pareto cell: launches {route_counts} are not all on flash_attention/wgmma")
+        fail(f"pareto cell: launches {route_counts} are not all on flash attention's "
+             f"routes, wgmma among them")
     if not report.get("front"):
         fail("pareto cell: no front")
     rows = CostDB(pareto_dir / "cost_db.jsonl").all()
@@ -1887,7 +1901,8 @@ def main() -> None:
                 q, k, v, causal=causal, block_q=dims["block_q"],
                 block_k=dims["block_k"]), max_reps=50)
             regs, local = (fa.wgmma_attributes(p["d"], dims["block_q"], dims["block_k"])
-                           if res.route == "wgmma" else (0, 0))
+                           if res.route == "wgmma" else fa.mma_attributes(p["d"], q.dtype)
+                           if res.route == "mma" else (0, 0))
             print(f"sweep flash_attention {dims}: kernel {ms:.4f} ms, "
                   f"{flops / ms / 1e9:.1f} TFLOP/s, modelled {res.est_latency_us / 1e3:.4f} ms, "
                   f"SDPA {sdpa_ms:.4f} ms, bound {bound_ms:.4f} ms, route {res.route}, "
@@ -1895,6 +1910,63 @@ def main() -> None:
                   f"{regs} compiled ({local} B local), {res.threads} threads, "
                   f"{res.blocks_per_sm} CTAs/SM [{card}]", flush=True)
     del q, k, v, qh, kh_, vh
+
+    # flash attention's mma route, which the campaign's f32 cell runs: its
+    # own entry at that cell's default tile; then every feasible tile of
+    # the two CI shapes (the f32 one all on mma, the bf16 one on both
+    # routes) beside SDPA's time, the bound and the resource model's
+    # estimate
+    n_mma, n_mma_by = launches_of(path_counts, "flash_attention", "mma")
+    if not n_mma:
+        fail("flash_attention: the main path never launched the mma kernel")
+    for shape in (KERNEL_SHAPE_BY_NAME["attn_s128_f32"],
+                  KERNEL_SHAPE_BY_NAME["attn_s256_gqa_bf16"]):
+        p = shape.params
+        q, k, v = conformance.make_inputs(shape, device=dev)
+        qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / H100_SXM.hbm_bw
+        default = baseline_kernel_point(shape, KernelTemplate(shape)).dims
+        for causal in (True, False):
+            pairs = (sum(min(p["sk"], i + 1) for i in range(p["sq"])) if causal
+                     else p["sq"] * p["sk"])
+            t_ops = 4 * p["d"] * p["b"] * p["h"] * pairs / peak_flops(H100_SXM, shape.dtype)
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qh, kh_, vh, is_causal=causal, enable_gqa=True)
+            sdpa_ms = time_ms(sdpa)
+            for dims in tile_grid(shape):
+                res = kernel_resources(shape, dims)
+                if not res.feasible or dims["causal"] != causal:
+                    continue
+                run = lambda: fa.flash_attention_cuda(  # noqa: E731
+                    q, k, v, causal=causal, block_q=dims["block_q"], block_k=dims["block_k"])
+                ms = time_ms(run)
+                if dims == default and shape.name == "attn_s128_f32":
+                    if res.route != "mma":
+                        fail(f"flash_attention at {shape.name} {dims} is not on the mma route")
+                    agree = conformance.agree_with_plain(
+                        run(), conformance.run_plain(shape, dims, (q, k, v)))
+                    if not agree["passed"]:
+                        fail(f"flash_attention mma at {dims}: kernel vs plain {agree}")
+                    plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, (q, k, v)),
+                                       budget_s=0.5, max_reps=10)
+                    results.append({
+                        "name": "flash_attention/mma", "route": "cuda", "kernel_route": "mma",
+                        "source": fa.SOURCES["mma"], "replaces": fa.REPLACES,
+                        "launches": n_mma, "launches_by_path": n_mma_by,
+                        "max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms,
+                        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                        "library_ms": sdpa_ms})
+                    print(f"time flash_attention/mma {shape.name} {dims}: kernel {ms:.4f} ms, "
+                          f"plain {plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound "
+                          f"{bound_ms:.5f} ms, {n_mma} launches on the main path "
+                          f"{n_mma_by} [{card}]", flush=True)
+                print(f"sweep flash_attention {shape.name} {dims}: kernel {ms:.4f} ms, SDPA "
+                      f"{sdpa_ms:.4f} ms, bound {bound_ms:.5f} ms, modelled "
+                      f"{res.est_latency_us / 1e3:.4f} ms, route {res.route}, smem "
+                      f"{res.vmem_bytes} B, {res.threads} threads [{card}]", flush=True)
+        del q, k, v, qh, kh_, vh
 
     # rmsnorm at every block_rows, beside F.rms_norm and the bound, and the
     # same rows on the two-pass path, which the wrapper does not take here
@@ -1971,45 +2043,6 @@ def main() -> None:
               f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms, {n_fma} launches on the main "
               f"path [{card}]", flush=True)
     del inputs
-
-    # flash attention's FMA kernel, which the campaign's f32 cell runs: its
-    # own entry, timed at that cell's default tile
-    n_fma, n_fma_by = launches_of(path_counts, "flash_attention", "fma")
-    if n_fma:
-        shape = KERNEL_SHAPE_BY_NAME["attn_s128_f32"]
-        p = shape.params
-        dims = baseline_kernel_point(shape, KernelTemplate(shape)).dims
-        if kernel_space_route(shape, dims) != "fma":
-            fail(f"flash_attention at {shape.name} {dims} is not on the fma route")
-        q, k, v = conformance.make_inputs(shape, device=dev)
-        run = lambda: fa.flash_attention_cuda(  # noqa: E731
-            q, k, v, causal=dims["causal"], block_q=dims["block_q"], block_k=dims["block_k"])
-        agree = conformance.agree_with_plain(run(), conformance.run_plain(shape, dims,
-                                                                          (q, k, v)))
-        if not agree["passed"]:
-            fail(f"flash_attention fma at {dims}: kernel vs plain {agree}")
-        qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = (sum(min(p["sk"], i + 1) for i in range(p["sq"])) if dims["causal"]
-                 else p["sq"] * p["sk"])
-        t_ops = 4 * p["d"] * p["b"] * p["h"] * pairs / peak_flops(H100_SXM, shape.dtype)
-        t_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() / H100_SXM.hbm_bw
-        ms = time_ms(run)
-        plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, (q, k, v)),
-                           budget_s=0.5, max_reps=10)
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh_, vh, is_causal=dims["causal"], enable_gqa=True))
-        results.append({
-            "name": "flash_attention/fma", "route": "cuda", "kernel_route": "fma",
-            "source": fa.SOURCES["fma"], "replaces": fa.REPLACES, "launches": n_fma,
-            "launches_by_path": n_fma_by, "max_abs_err": agree["max_abs_err"], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms})
-        print(f"time flash_attention/fma {shape.name} {dims}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-              f"{results[-1]['bound_ms']:.5f} ms, {n_fma} launches on the main path "
-              f"{n_fma_by} [{card}]", flush=True)
-        del q, k, v, qh, kh_, vh
 
     # zamba2-2.7b's widths (80 heads of 64, d_state 64) on the wgmma route,
     # against the plain version and timed

@@ -303,6 +303,11 @@ class KernelTemplate:
             if res.vmem_bytes > self.device.smem_per_block:
                 return False, (f"shared memory {res.vmem_bytes} B per block "
                                f"exceeds {self.device.smem_per_block} B limit")
+            regs = res.regs_per_thread
+            if regs and (regs > self.device.max_regs_per_thread
+                         or regs * res.threads > self.device.regs_per_sm):
+                return False, (f"{regs} registers per thread for {res.threads} "
+                               f"threads exceed {self.device.regs_per_sm} per SM")
             return False, (f"{res.threads} threads per block outside "
                            f"1..{self.device.max_threads_per_block}")
         return True, ""

@@ -42,6 +42,8 @@ class DeviceModel:
     max_threads_per_sm: int = 2048
     max_blocks_per_sm: int = 32
     regs_per_sm: int = 65_536  # 32-bit registers an SM divides among its blocks
+    max_regs_per_thread: int = 255
+    peak_flops_tf32: float = 495e12  # FLOP/s, dense tensor cores on TF32 operands
     cards_per_node: int = 1  # cards one NVLink domain joins
     nic_bw: float = 0.0  # B/s per direction per card between nodes
 

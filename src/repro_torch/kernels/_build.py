@@ -45,8 +45,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vecmul_launch": [_P, _P, _P, _LL, _I, _I, _I, _P],
     "rmsnorm_launch": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
-    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _I, _I, _P],
+    "flash_attention_mma_launch": [_P, _P, _P, _P, _P, _F, _P],
+    "flash_attention_mma_attributes": [_I, _I, _P, _P],
+    "flash_attention_fma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _I, _I, _I, _P],
     "flash_attention_wgmma_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _F, _I, _I, _P],
     "flash_attention_wgmma_attributes": [_I, _I, _I, _P, _P],
@@ -146,8 +148,11 @@ def library() -> ctypes.CDLL:
 
 
 def stream_ptr(device: torch.device) -> int:
-    """PyTorch's current stream on ``device``, as the pointer the C side takes."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current stream on ``device``, as the pointer the C side
+    takes. Read without building a ``torch.cuda.Stream`` (8 us a call on
+    the H100's host, against a kernel of tens of us)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(name: str, err: int) -> None:

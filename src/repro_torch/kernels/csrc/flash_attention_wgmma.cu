@@ -6,7 +6,7 @@
 // flash_attention(), lines 24-103) for bf16 inputs at d = 64 and d = 128
 // with block_q and block_k of 64 or 128, the tiles FLASH_WGMMA_CASE below
 // instantiates; f32 inputs, any other d and any other tile take
-// csrc/flash_attention.cu (the rule is
+// csrc/flash_attention.cu, or csrc/flash_attention_fma.cu (the rule is
 // repro_torch/kernels/flash_attention.py::route, whose WGMMA_D and
 // WGMMA_BLOCKS list the same tiles). Same function: q
 // [b, sq, h, d], k and v [b, sk, kh, d], GQA (query head `hd` reads KV head

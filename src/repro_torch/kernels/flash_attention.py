@@ -7,14 +7,19 @@ q is scaled by 1/sqrt(d) in f32; causal keeps ``q_offset + i >= j``
 -1e30; m, l and the accumulator are f32 with an ``l == 0 -> 1`` guard;
 blocks are ``min(block, seq)`` and must divide the sequence.
 
-``flash_attention_cuda`` launches one of two hand-written Hopper kernels
+``flash_attention_cuda`` launches one of three hand-written Hopper kernels
 (one CUDA block per (b*h, q tile)), chosen by :func:`route` before the
 launch: bf16 inputs at d = 64 or 128 with block_q and block_k of 64 or 128
 (the tiles it is instantiated for) take ``csrc/flash_attention_wgmma.cu``
-(``wgmma`` products, TMA-fed K/V); every other call (f32, whose TF32 would
-not hold it to its plain version; bf16 at another d, another tile or a
-sequence shorter than 64) takes ``csrc/flash_attention.cu`` (f32 FMAs).
-A failed build or launch raises; neither route stands in for the other.
+(``wgmma`` products, TMA-fed K/V); every other call up to d = 128 whose
+two K/V stages fit a block (f32; bf16 at another d, another tile or a
+sequence shorter than 64) takes ``csrc/flash_attention.cu`` (``mma.sync``
+TF32 products with each operand split into two TF32 parts, three products
+per product for f32 and two where the operand is bf16, which keeps f32
+accuracy: plain TF32 would not hold f32 to its plain version); the rest (d
+above 128, or large block_k, mostly f32) take ``csrc/flash_attention_fma.cu``
+(f32 FMAs on the CUDA cores, one K/V stage).
+A failed build or launch raises; no route stands in for another.
 ``flash_attention_plain`` walks the same ``block_q`` / ``block_k`` tiles
 with the same online softmax in plain torch, including the causal tile
 skip, so the CPU tests exercise the GQA mapping, the causal offsets and the
@@ -24,21 +29,31 @@ product, as that kernel does (l is summed from the f32 P).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
 import torch
 
+from repro_torch.core.device import H100_SXM
 from repro_torch.kernels import _build
 
-SOURCES = {"fma": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu"}
+SOURCES = {"mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+           "fma": "src/repro_torch/kernels/csrc/flash_attention_fma.cu"}
 REPLACES = "src/repro/kernels/flash_attention.py:24"
 
 NEG_INF = -1e30
 
+#: head dims the mma kernel is instantiated for; d is zero-padded inside
+#: the kernel to the next of them (``FLASH_MMA_CASE`` in its source lists
+#: the same), and a larger d is refused
+MMA_D = (16, 32, 64, 96, 128)
+#: most warps of an mma block (16 query rows each); a larger q tile runs in
+#: passes of 16 * MMA_WARPS rows
+MMA_WARPS = 8
 #: threads per CUDA block of the FMA kernel
-THREADS = 256
+FMA_THREADS = 256
 
 #: head dims the wgmma kernel is instantiated for
 WGMMA_D = (64, 128)
@@ -52,13 +67,21 @@ WGMMA_BLOCKS = (64, 128)
 WGMMA_STAGES = 2
 
 
+@functools.lru_cache(maxsize=None)
 def route(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """Which kernel runs a call at the tile it runs (``min(block, seq)``),
     decided before the launch: ``"wgmma"`` for bf16 at a head dim in
-    ``WGMMA_D`` and ``block_q``, ``block_k`` in ``WGMMA_BLOCKS``, ``"fma"``
-    otherwise."""
-    return ("wgmma" if dtype == torch.bfloat16 and d in WGMMA_D
-            and block_q in WGMMA_BLOCKS and block_k in WGMMA_BLOCKS else "fma")
+    ``WGMMA_D`` and ``block_q``, ``block_k`` in ``WGMMA_BLOCKS``; else
+    ``"mma"`` where d is at most 128 and its shared memory fits a block;
+    else ``"fma"``."""
+    if (dtype == torch.bfloat16 and d in WGMMA_D and block_q in WGMMA_BLOCKS
+            and block_k in WGMMA_BLOCKS):
+        return "wgmma"
+    itemsize = 4 if dtype == torch.float32 else 2
+    if (mma_head_dim(d)
+            and smem_bytes_mma(block_q, block_k, d, itemsize) <= H100_SXM.smem_per_block):
+        return "mma"
+    return "fma"
 
 
 def wgmma_threads(block_q: int) -> int:
@@ -75,7 +98,48 @@ def smem_bytes_wgmma(block_q: int, block_k: int, d: int) -> int:
             + 8 * (1 + 2 * WGMMA_STAGES))
 
 
-def smem_bytes(block_q: int, block_k: int, d: int, itemsize: int) -> int:
+@functools.lru_cache(maxsize=None)
+def mma_head_dim(d: int) -> int:
+    """The head dim the mma kernel pads ``d`` to, 0 where it takes none."""
+    return next((p for p in MMA_D if p >= d), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def mma_sub_keys(d: int) -> int:
+    """Keys of the sub-tile each warp of the mma kernel takes at once (its
+    S fragment holds half as many registers): 64 up to d = 32, else 32."""
+    return 64 if mma_head_dim(d) <= 32 else 32
+
+
+@functools.lru_cache(maxsize=None)
+def mma_threads(block_q: int) -> int:
+    """The mma kernel's threads: one warp per 16 query rows, at most
+    ``MMA_WARPS``."""
+    return 32 * min(-(-block_q // 16), MMA_WARPS)
+
+
+def _row_words(dp: int, itemsize: int, rem: int, mod: int) -> int:
+    words = dp * itemsize // 4
+    return words + (rem - words) % mod
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes_mma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
+    """Dynamic shared memory the mma kernel asks for: two stages of a K and
+    a V tile in the input type, ``block_k`` rows rounded up to whole
+    sub-tiles, the q rows of one pass (16 a warp), each row padded for
+    conflict-free fragment reads (K and q: f32 to 8 words mod 32, bf16 to
+    4 mod 16; V: 4 words mod 16). The launch and the resource model both
+    call this."""
+    dp, kc = mma_head_dim(d), mma_sub_keys(d)
+    k_words = (_row_words(dp, 4, 8, 32) if itemsize == 4
+               else _row_words(dp, 2, 4, 16))
+    v_words = _row_words(dp, itemsize, 4, 16)
+    return 4 * (2 * (-(-block_k // kc) * kc) * (k_words + v_words)
+                + mma_threads(block_q) // 2 * k_words)
+
+
+def smem_bytes_fma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
     """Dynamic shared memory the FMA kernel asks for: the f32 accumulator
     [bq, d], the scaled q tile [bq, d+1] and the score tile [bq, bk+1] in
     f32 (their padding columns hold each row's m and correction), l per
@@ -97,21 +161,25 @@ def k_tiles_walked(q_tile: int, block_q: int, block_k: int, sk: int, *,
     return n_k
 
 
-def _blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
-            block_k: int) -> Tuple[int, int]:
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+def _tiles(q_shape, k_shape, v_shape, block_q: int, block_k: int) -> Tuple[int, int]:
+    if len(q_shape) != 4 or len(k_shape) != 4 or k_shape != v_shape:
         raise ValueError(f"flash_attention takes q [b,sq,h,d] and k, v "
-                         f"[b,sk,kh,d], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, sq, h, d = q.shape
-    if k.shape[0] != b or k.shape[3] != d or h % k.shape[2]:
-        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    sk = k.shape[1]
+                         f"[b,sk,kh,d], got {tuple(q_shape)}, "
+                         f"{tuple(k_shape)}, {tuple(v_shape)}")
+    b, sq, h, d = q_shape
+    if k_shape[0] != b or k_shape[3] != d or h % k_shape[2]:
+        raise ValueError(f"k/v {tuple(k_shape)} do not fit q {tuple(q_shape)}")
+    sk = k_shape[1]
     bq, bk = min(block_q, sq), min(block_k, sk)
     if sq % bq or sk % bk:
         raise ValueError(f"blocks must divide the sequences: sq={sq} "
                          f"block_q={bq} sk={sk} block_k={bk}")
     return bq, bk
+
+
+def _blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, block_q: int,
+            block_k: int) -> Tuple[int, int]:
+    return _tiles(q.shape, k.shape, v.shape, block_q, block_k)
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 512,
@@ -154,38 +222,53 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 512,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
+@functools.lru_cache(maxsize=1024)
+def _launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, block_q: int,
+                 block_k: int, causal: bool, q_offset: int) -> Tuple[str, tuple, str, object]:
+    """A call's launch, worked out once for its shapes and options (at small
+    shapes the host's share of a call is comparable to the kernel's): the
+    C entry point, its arguments between the four pointers and the stream,
+    the launch counter's route key, and what must outlive the arguments
+    (the mma launcher takes its integers as one array)."""
+    bq, bk = _tiles(q_shape, k_shape, v_shape, block_q, block_k)
+    b, sq, h, d = q_shape
+    _, sk, kh, _ = k_shape
+    path = route(dtype, d, bq, bk)
+    ints = (b, sq, sk, h, kh, d, bq, bk, int(causal), q_offset)
+    scale = 1.0 / math.sqrt(d)
+    itemsize, code = dtype.itemsize, _build.DTYPE_CODES.get(dtype, -1)
+    cfg = None
+    if path == "wgmma":
+        args = (*ints, scale, wgmma_threads(bq), smem_bytes_wgmma(bq, bk, d))
+    elif path == "mma":
+        cfg = (ctypes.c_int * 13)(*ints, code, mma_threads(bq),
+                                  smem_bytes_mma(bq, bk, d, itemsize))
+        args = (ctypes.addressof(cfg), scale)
+    else:
+        args = (*ints, scale, code, FMA_THREADS, smem_bytes_fma(bq, bk, d, itemsize))
+    return f"flash_attention_{path}_launch", args, f"flash_attention/{path}", cfg
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, block_q: int = 512,
                          block_k: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Flash attention on ``q``'s card, through the kernel :func:`route`
     names."""
-    bq, bk = _blocks(q, k, v, block_q, block_k)
+    entry, args, key, _ = _launch_plan(q.shape, k.shape, v.shape, q.dtype, block_q,
+                                       block_k, bool(causal), int(q_offset))
     if not (q.is_cuda and k.device == q.device and v.device == q.device
             and k.dtype == q.dtype and v.dtype == q.dtype):
         raise ValueError("flash_attention_cuda takes CUDA tensors of one "
                          "dtype on one card")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda takes contiguous tensors")
-    code = _build.dtype_code(q)
-    b, sq, h, d = q.shape
-    _, sk, kh, _ = k.shape
+    _build.dtype_code(q)  # raises for a dtype the kernels do not take
     o = torch.empty_like(q)
-    lib = _build.library()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
-    args = (b, sq, sk, h, kh, d, bq, bk, int(bool(causal)), int(q_offset),
-            1.0 / math.sqrt(d))
-    path = route(q.dtype, d, bq, bk)
-    if path == "wgmma":
-        err = lib.flash_attention_wgmma_launch(
-            *ptrs, *args, wgmma_threads(bq), smem_bytes_wgmma(bq, bk, d),
-            _build.stream_ptr(q.device))
-        _build.check("flash_attention_wgmma_launch", err)
-    else:
-        err = lib.flash_attention_launch(
-            *ptrs, *args, code, THREADS, smem_bytes(bq, bk, d, q.element_size()),
-            _build.stream_ptr(q.device))
-        _build.check("flash_attention_launch", err)
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *args,
+        _build.stream_ptr(q.device))
+    _build.check(entry, err)
     _build.LAUNCHES["flash_attention"] += 1
-    _build.LAUNCHES[f"flash_attention/{path}"] += 1
+    _build.LAUNCHES[key] += 1
     return o
 
 
@@ -197,4 +280,15 @@ def wgmma_attributes(d: int, block_q: int, block_k: int) -> Tuple[int, int]:
     err = _build.library().flash_attention_wgmma_attributes(
         d, block_q, block_k, ctypes.byref(regs), ctypes.byref(local))
     _build.check("flash_attention_wgmma_attributes", err)
+    return regs.value, local.value
+
+
+def mma_attributes(d: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(registers per thread, local bytes per thread) the compiler gave the
+    mma kernel at ``d``'s padded head dim; builds the library. Raises above
+    d = 128."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _build.library().flash_attention_mma_attributes(
+        d, _build.DTYPE_CODES[dtype], ctypes.byref(regs), ctypes.byref(local))
+    _build.check("flash_attention_mma_attributes", err)
     return regs.value, local.value

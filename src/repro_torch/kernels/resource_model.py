@@ -8,9 +8,10 @@ For each candidate tile of a port kernel it reports:
   launch calls), and ``vmem_util``, its share of the 232,448 B a block may
   have (the BRAM-utilization analog; the names stay because
   ``cost_db.derive_objectives`` reads ``vmem_util``);
-* ``feasible``: that figure fits one block, the thread count is legal and
-  the kernel has the tile (the wgmma route takes only the tiles it is
-  instantiated for), so the DSE never proposes a tile that cannot launch;
+* ``feasible``: that figure fits one block, the thread count is legal,
+  the modelled registers fit (flash attention's mma route) and the kernel
+  has the tile (the wgmma route takes only the tiles it is instantiated
+  for), so the DSE never proposes a tile that cannot launch;
 * ``route``: which kernel (or kernel path) runs the tile, by the same rule
   the wrapper applies before its launch, and ``regs_per_thread``, the
   modelled registers, which only set the blocks resident per SM (0 where
@@ -21,7 +22,9 @@ For each candidate tile of a port kernel it reports:
 * ``est_latency_us``: blocks in waves over the SMs at the occupancy that
   shared memory and threads allow, each wave taking one block's
   max(compute, bytes) time, with the card's compute rate (f32 on the CUDA
-  cores; bf16 on the tensor cores for the wgmma route) and memory rate
+  cores for the FMA routes; bf16 on the tensor cores for the wgmma routes;
+  TF32 on the tensor cores over the products a product takes for flash
+  attention's mma route) and memory rate
   split evenly among the resident blocks but never more than one SM's
   share to a block. Resident blocks per SM are what shared memory,
   threads and registers allow. Each ``csrc/*.cu`` states its terms.
@@ -125,6 +128,17 @@ def flash_wgmma_registers(block_k: int, d: int) -> int:
     return _round8(block_k / 2 + d / 2 + block_k / 4 + 48)
 
 
+def flash_mma_registers(d: int, itemsize: int) -> int:
+    """Registers per thread the model gives flash attention's mma kernel,
+    for feasibility and blocks per SM: q's two TF32 parts (DP, the padded
+    head dim; DP/2 for f32 and above 64, where q is held in f32 and split
+    at each use), O (DP/2 f32), S (half the sub-tile's keys) and 40 for m,
+    l, B fragments, P's parts and addresses, rounded up to 8."""
+    dp = _fa.mma_head_dim(d)
+    q_regs = dp if itemsize == 2 and dp <= 64 else dp / 2
+    return _round8(q_regs + dp / 2 + _fa.mma_sub_keys(d) / 2 + 40)
+
+
 def rmsnorm_registers(d: int, itemsize: int) -> int:
     """Registers per thread the model gives the rmsnorm kernel: 4 per
     16-byte vector held on the register path, plus 32; 40 on the others."""
@@ -183,15 +197,26 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
                       threads=_fa.wgmma_threads(block_q),
                       regs=flash_wgmma_registers(block_k, d),
                       peak=dev.peak_flops_bf16)
+        fits = True
+    elif route == "mma":
+        # three TF32 products per product for f32, two for bf16 (K and V
+        # exact in TF32)
+        threads, regs = _fa.mma_threads(min(block_q, sq)), flash_mma_registers(d, itemsize)
+        launch = dict(smem=_fa.smem_bytes_mma(min(block_q, sq), min(block_k, sk), d, itemsize),
+                      threads=threads,
+                      regs=regs, peak=dev.peak_flops_tf32 / (3 if itemsize == 4 else 2))
+        fits = regs <= dev.max_regs_per_thread and regs * threads <= dev.regs_per_sm
     else:
-        launch = dict(smem=_fa.smem_bytes(block_q, block_k, d, itemsize),
-                      threads=_fa.THREADS)
-    return _mk(
+        launch = dict(smem=_fa.smem_bytes_fma(block_q, block_k, d, itemsize),
+                      threads=_fa.FMA_THREADS)
+        fits = True
+    res = _mk(
         "flash_attention", n_blocks=n_blocks, flops=flops, nbytes=nbytes,
         aligned_mma=(block_q % 64 == 0 and block_k % 16 == 0 and d % 16 == 0),
         aligned_vec=(d * itemsize) % 16 == 0, dev=dev, route=route,
         notes=f"bq={block_q} bk={block_k} d={d} sk={sk} causal={causal}",
         **launch)
+    return res if fits else dataclasses.replace(res, feasible=False)
 
 
 #: registers per thread the model gives the SSD wgmma kernel, for its

@@ -3,7 +3,8 @@ version over the full legal grid of the CI shapes and a few odd shapes
 (row by row, within ``conformance.PLAIN_REL``), the SSD scan also with an
 initial state at every chunk, the bf16 SSD scan on its wgmma route at every
 instantiated (chunk, N) over an odd number of chunks, bf16 flash attention
-on both of its routes
+on both of its routes and f32 flash attention on the mma route (the FMA
+kernel where the mma kernel's two K/V stages do not fit, and above d = 128)
 with ``sq != sk``, ``q_offset``, odd K-tile walks and short query blocks at
 d = 64, 96 and 128, every
 rmsnorm path at an odd row count and every ``block_rows``, the oracle
@@ -31,6 +32,7 @@ from repro_torch.kernels import _build, conformance, ops
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.kernels.resource_model import flash_attention_resources
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_plain
 from repro_torch.launch import campaign, dse
 
@@ -150,15 +152,16 @@ def test_ssd_wgmma_matches_plain(chunk, N, with_state, card):
     assert agree["passed"], agree
 
 
-#: (sq, sk, q_offset, causal) for bf16 flash attention on both routes
+#: (sq, sk, q_offset, causal) for flash attention on both routes (bf16) and
+#: on the mma route (f32)
 FLASH_CASES = [
     (128, 256, 0, True),
     (128, 320, 64, True),   # decode-style tail: walks of 3 and 4 tiles of 64
     (128, 256, -32, True),  # rows 0..31 see no key and average V
     (192, 320, 0, False),   # sq != sk; 5 K tiles of 64, odd against 2 stages
     (256, 128, 0, True),    # more queries than keys
-    (32, 256, 224, True),   # a 32-row q block: the FMA kernel
-    (1, 256, 255, True),    # one query row (decode): the FMA kernel
+    (32, 256, 224, True),   # a 32-row q block: the mma kernel
+    (1, 256, 255, True),    # one query row (decode): the mma kernel, 15 rows padded
 ]
 
 
@@ -190,13 +193,64 @@ def test_flash_bf16_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("sq,sk,q_offset,causal", FLASH_CASES)
+def test_flash_f32_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card):
+    # f32 on split TF32 (three products a product) held to the plain
+    # version at the unchanged PLAIN_REL; 256- and 512-row tiles run in
+    # passes of 128 rows; a tile whose two K/V stages do not fit goes to
+    # the FMA kernel where its one stage does
+    gen = torch.Generator(device=card).manual_seed(sq + sk + d)
+
+    def draw(s, heads):
+        return 0.3 * torch.randn(2, s, heads, d, generator=gen, device=card)
+
+    q, k, v = draw(sq, 4), draw(sk, 2), draw(sk, 2)
+    for bq, bk in [(64, 64), (64, 128), (128, 64), (128, 128), (256, 64), (512, 128)]:
+        bq_, bk_ = min(bq, sq), min(bk, sk)
+        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or not \
+                flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_, 4).feasible:
+            continue
+        key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
+        assert key.endswith("mma") == (fa.smem_bytes_mma(bq_, bk_, d, 4) <= 232_448)
+        kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
+        before = _build.LAUNCHES[key]
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[key] == before + 1
+        agree = conformance.agree_with_plain(
+            got, fa.flash_attention_plain(q, k, v, **kw))
+        assert agree["passed"], (bq, bk, agree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,bq,bk", [
+    (torch.bfloat16, 192, 64, 64),   # d above 128
+    (torch.float32, 192, 64, 64),
+    (torch.float32, 64, 64, 256),    # two f32 K/V stages of 256 rows do not fit
+])
+def test_flash_fma_takes_what_the_mma_kernel_cannot(dtype, d, bq, bk, card):
+    gen = torch.Generator(device=card).manual_seed(d + bk)
+    q, k, v = ((0.3 * torch.randn(1, 256, hh, d, generator=gen, device=card)).to(dtype)
+               for hh in (4, 2, 2))
+    assert fa.route(dtype, d, bq, bk) == "fma"
+    before = _build.LAUNCHES["flash_attention/fma"]
+    got = fa.flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention/fma"] == before + 1
+    agree = conformance.agree_with_plain(
+        got, fa.flash_attention_plain(q, k, v, causal=True, block_q=bq, block_k=bk))
+    assert agree["passed"], agree
+
+
+@pytest.mark.cuda
 def test_flash_wgmma_refuses_tiles_it_does_not_instantiate(card):
-    # the wrapper sends (256, 64) to the FMA kernel; the wgmma launcher
+    # the wrapper sends (256, 64) to the mma kernel; the wgmma launcher
     # itself refuses it
     q = (0.3 * torch.randn(1, 256, 2, 64, device=card)).to(torch.bfloat16)
-    before = _build.LAUNCHES["flash_attention/fma"]
+    before = _build.LAUNCHES["flash_attention/mma"]
     got = fa.flash_attention_cuda(q, q, q, block_q=256, block_k=64)
-    assert _build.LAUNCHES["flash_attention/fma"] == before + 1
+    assert _build.LAUNCHES["flash_attention/mma"] == before + 1
     assert conformance.agree_with_plain(
         got, fa.flash_attention_plain(q, q, q, block_q=256, block_k=64))["passed"]
     o = torch.empty_like(q)

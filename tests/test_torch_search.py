@@ -362,7 +362,7 @@ def test_cli_gated_ensemble_writes_pruned_rows(tmp_path, monkeypatch, capsys):
     db_path = tmp_path / "db.jsonl"
     assert dse.build_parser().get_default("strategy") == "ensemble"
     # the cell's eight wgmma tiles are modelled within 1.7x of each other
-    # (its four FMA tiles at 3.7-15x the fastest), and at a factor of 3.0 the gate
+    # (its ten mma tiles at 1.4-4.0x the fastest), and at a factor of 3.0 the gate
     # prunes none of the designs six iterations propose
     rep = dse.main(["--space", "kernels",
                     "--arch", "flash_attention", "--shape", "attn_s256_gqa_bf16",
