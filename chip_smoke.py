@@ -15,14 +15,18 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    y and the final state, with and without an ``initial_state``, and the
    oracle gate at every feasible chunk), each through the route the
    resource model names (flash attention: ``wgmma``, ``mma`` or ``fma``;
-   the SSD scan: ``wgmma`` or ``fma``; rmsnorm: ``registers``, ``two-pass``
+   the SSD scan: ``wgmma``, ``mma`` or ``fma``; rmsnorm: ``registers``, ``two-pass``
    or ``scalar``), the others must be refused; then flash attention's card
    cases in bf16 and f32, each on the route ``flash_attention.route``
    names (``sq != sk``, ``q_offset`` of 64, 0 and -32, non-causal, odd
    K-tile walks, d = 64, 96, 128 and 192, 256-row, 32-row and one-row query
    blocks), the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
    state size, with and without an initial state, five chunks of three
-   heads) and rmsnorm at 8193 x 4096 on every path and ``block_rows``;
+   heads), the SSD scan's on ``mma`` (f32 and bf16, chunks 32-256, dh/N
+   24/40, 32/48 and 64/128, with and without an initial state) and on the
+   FMA kernels at the sizes ``mma`` does not take (f32 chunk tiles beyond a
+   block, N above 128), and rmsnorm at 8193 x 4096 on every path and
+   ``block_rows``;
 3. the main path, ``repro_torch.launch.dse`` once per kernel on its
    full-width shape (vecmul and rmsnorm: greedy, 2 iterations; flash
    attention and the SSD scan: the default ensemble with the surrogate
@@ -43,7 +47,8 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    best of each cell measured. Launch counts are set to 0 just before it
    and read just after: every kernel must have launched, flash attention
    on ``wgmma`` and on ``mma`` (the f32 cell), the SSD scan on ``wgmma``
-   and rmsnorm on ``registers``, no row may
+   and on ``mma`` (the f32 cell, and chunk 32), and rmsnorm on
+   ``registers``, no row may
    be an ``error``, measured rows must say ``backend: cuda`` and
    ``BENCH_kernels.json`` must hold 10 cells; the campaign's record (wall
    time, rows by status, the correctness audit, the gate's state after the
@@ -66,7 +71,9 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    ``F.rms_norm`` and the two-pass path's time on the same rows at every
    ``block_rows``, the SSD scan's at every chunk with its route, each
    launch's time from the profiler, registers and the resource model's
-   estimate, the SSD scan's FMA route where the main path ran it, and the
+   estimate, the SSD scan's ``mma`` route at full width, chunk 32 (and
+   its FMA route where the main path ran it and a full-width chunk takes
+   it), and the
    SSD scan at zamba2-2.7b's widths (80 heads of 64, d_state 64) on ``wgmma``,
    held against its plain version and timed;
 5. plan cells, llama3-8b at full width (launch counts set to 0 before and
@@ -326,7 +333,8 @@ def ssd_launch_split(run, reps: int = 3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("ssd_cumsum_kernel", "ssd_state_kernel", "ssd_intra_kernel", "ssd_wgmma_kernel")
+    names = ("ssd_cumsum_kernel", "ssd_state_kernel", "ssd_intra_kernel", "ssd_wgmma_kernel",
+             "ssd_mma_kernel")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             run()
@@ -1476,6 +1484,7 @@ def main() -> None:
     modules = {"vecmul": vm, "rmsnorm": rn, "flash_attention": fa, "ssd_scan": ssd}
 
     # ---- phase 2: every legal tile point, kernel against plain version ----
+    t_phase = time.perf_counter()
     odd = [KernelShape("rms_odd_173x96_f32", "rmsnorm", {"rows": 173, "d": 96}, "float32"),
            KernelShape("vec_odd_5000_bf16", "vecmul", {"L": 5000}, "bfloat16"),
            KernelShape("ssd_odd_b2_s96_f32", "ssd_scan",
@@ -1612,6 +1621,46 @@ def main() -> None:
     print(f"cases ssd_scan bf16: {n_ok} runs (chunk 64/128/256 x N 64/128, with and "
           f"without initial_state, 5 chunks, 3 heads) agree with the plain version row by "
           f"row on wgmma (worst row err/limit {worst:.3g})", flush=True)
+    # the SSD scan's mma route: f32 and bf16, chunks 32-256, odd dh and N
+    # (padded inside the kernel), with and without an initial state, three
+    # chunks (odd against the two-stage ring) of three heads; and the FMA
+    # kernels at what the mma kernel does not take (f32 chunk tiles beyond a
+    # block, N above 128)
+    n_ok = 0
+    worst = {}
+    routes = {}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = [(dtype, dh, N, chunk, "mma") for dtype in dtypes
+             for dh, N in ((24, 40), (32, 48), (64, 128)) for chunk in (32, 64, 128, 256)
+             if ssd.route(dtypes[dtype], chunk, dh, N) == "mma"]
+    cases += [("float32", 64, 128, 256, "fma"), ("float32", 32, 160, 64, "fma"),
+              ("bfloat16", 32, 160, 64, "fma")]
+    for dtype, dh, N, chunk, path in cases:
+        if ssd.route(dtypes[dtype], chunk, dh, N) != path:
+            fail(f"ssd {dtype} dh={dh} N={N} chunk={chunk} is not on route {path}")
+        shape = KernelShape("ssd_mma_case", "ssd_scan",
+                            {"b": 1, "s": 3 * chunk, "nh": 3, "dh": dh, "N": N}, dtype)
+        x, dt, A, B, C = conformance.make_inputs(shape, device=dev)
+        key = f"ssd_scan/{path}"
+        gen = torch.Generator(device=dev).manual_seed(chunk + N + dh)
+        for s0 in (None, 0.3 * torch.randn(1, 3, dh, N, generator=gen, device=dev)):
+            before = _build.LAUNCHES[key]
+            agree = conformance.agree_with_plain(
+                ssd.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=s0),
+                ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=s0))
+            if not agree["passed"] or _build.LAUNCHES[key] != before + 1:
+                fail(f"ssd {dtype} dh={dh} N={N} chunk={chunk} initial_state="
+                     f"{s0 is not None} on {key}: {agree}")
+            worst[key] = max(worst.get(key, 0.0), agree["ratio"])
+            routes[key] = routes.get(key, 0) + 1
+            n_ok += 1
+    if not routes.get("ssd_scan/mma") or not routes.get("ssd_scan/fma"):
+        fail(f"cases ssd_scan mma: runs per route {routes}")
+    print(f"cases ssd_scan mma: {n_ok} runs (f32 and bf16, dh/N 24/40, 32/48, 64/128, chunk "
+          f"32-256, with and without initial_state, 3 chunks, 3 heads; the FMA kernels at "
+          f"f32 dh 64 N 128 chunk 256 and N 160) agree with the plain version row by row; "
+          f"runs per route {routes}, worst row err/limit by route "
+          f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }", flush=True)
     # rmsnorm at an odd row count on every path and block_rows
     n_ok = 0
     worst = 0.0
@@ -1633,7 +1682,10 @@ def main() -> None:
           f"301x100 scalar; every block_rows) agree with the plain version row by row "
           f"(worst row err/limit {worst:.3g})", flush=True)
 
+    print(f"phase 2 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- phase 3: the main path, one DSE cell per kernel at full width ----
+    t_phase = time.perf_counter()
     search = {
         "vecmul": ["--strategy", "greedy", "--iterations", "2"],
         "rmsnorm": ["--strategy", "greedy", "--iterations", "2"],
@@ -1711,7 +1763,10 @@ def main() -> None:
         print(f"gate {kernel}: injected {dim}={val} -> infeasible ({base.reason})",
               flush=True)
 
+    print(f"phase 3 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- phase 3b: one kernel campaign over every CI and full-width cell ----
+    t_phase = time.perf_counter()
     camp_dir = OUT / "campaign"
     shutil.rmtree(camp_dir, ignore_errors=True)
     camp_shapes = [s.name for s in CI_KERNEL_SHAPES] + list(full.values())
@@ -1729,7 +1784,7 @@ def main() -> None:
         if counts[kernel] == 0:
             fail(f"campaign: {kernel} was launched no time")
     for key in ("flash_attention/wgmma", "flash_attention/mma", "ssd_scan/wgmma",
-                "rmsnorm/registers"):
+                "ssd_scan/mma", "rmsnorm/registers"):
         if route_counts.get(key, 0) == 0:
             fail(f"campaign: {key} was launched no time")
     rows = CostDB(camp_dir / "cost_db.jsonl").all()
@@ -1812,7 +1867,10 @@ def main() -> None:
               f"{d.metrics['measured_us']:.2f} us (modelled "
               f"{d.metrics['bound_s_modeled'] * 1e6:.2f} us) [{card}]", flush=True)
 
+    print(f"phase 3b took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
     # ---- phase 4: times at each full-width default point ----
+    t_phase = time.perf_counter()
     results = []
     for kernel, shape_name in full.items():
         shape = KERNEL_SHAPE_BY_NAME[shape_name]
@@ -2011,7 +2069,8 @@ def main() -> None:
         ms = time_ms(run, max_reps=20)
         split = ssd_launch_split(run)
         regs, local = (ssd.wgmma_attributes(L, p["N"], p["dh"]) if res.route == "wgmma"
-                       else (0, 0))
+                       else ssd.mma_attributes(p["dh"], p["N"], torch.bfloat16)
+                       if res.route == "mma" else (0, 0))
         bound_ms, _ = ssd_bound(p, L, 2)
         print(f"sweep ssd_scan {dims}: kernel {ms:.4f} ms ("
               + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items()))
@@ -2019,29 +2078,38 @@ def main() -> None:
               f"route {res.route}, smem {res.vmem_bytes} B, registers {res.regs_per_thread} "
               f"modelled / {regs} compiled ({local} B local), {res.blocks_per_sm} "
               f"CTAs/SM [{card}]", flush=True)
-    # the FMA route on the main path (chunk 32, wgmma's M being 64, and the
-    # campaign's f32 cell): its own entry beside the wgmma one, timed at
-    # full width
-    n_fma, n_fma_by = launches_of(path_counts, "ssd_scan", "fma")
-    if n_fma:
-        dims = {"chunk": max(d["chunk"] for d in tile_grid(shape)
-                             if kernel_resources(shape, d).route == "fma")}
+    # the mma route on the main path (chunk 32, wgmma's M being 64, and the
+    # campaign's f32 cell at every chunk): its own entry beside the wgmma
+    # one, timed at full width, chunk 32; the FMA route keeps an entry only
+    # where the main path launched it and a full-width chunk takes it
+    for route_name in ("mma", "fma"):
+        n_route, n_route_by = launches_of(path_counts, "ssd_scan", route_name)
+        chunks = [d["chunk"] for d in tile_grid(shape)
+                  if kernel_resources(shape, d).route == route_name]
+        if route_name == "mma" and not n_route:
+            fail("ssd_scan: the main path never launched the mma kernel")
+        if not n_route or not chunks:
+            continue
+        dims = {"chunk": min(chunks)}
         run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=dims["chunk"])  # noqa: E731
+        before = _build.LAUNCHES[f"ssd_scan/{route_name}"]
         agree = conformance.agree_with_plain(run(), conformance.run_plain(shape, dims, inputs))
-        if not agree["passed"]:
-            fail(f"ssd_scan fma at {dims}: kernel vs plain {agree}")
+        if not agree["passed"] or _build.LAUNCHES[f"ssd_scan/{route_name}"] != before + 1:
+            fail(f"ssd_scan {route_name} at {dims}: kernel vs plain {agree}")
         bound_ms, bound_by = ssd_bound(p, dims["chunk"], 2)
         ms = time_ms(run, max_reps=20)
         plain_ms = time_ms(lambda: conformance.run_plain(shape, dims, inputs),
                            budget_s=0.5, max_reps=10)
         results.append({
-            "name": "ssd_scan/fma", "route": "cuda", "kernel_route": "fma",
-            "source": ssd.SOURCES["fma"], "replaces": ssd.REPLACES, "launches": n_fma,
-            "launches_by_path": n_fma_by, "max_abs_err": agree["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
-        print(f"time ssd_scan/fma {shape.name} {dims}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms, {n_fma} launches on the main "
-              f"path [{card}]", flush=True)
+            "name": f"ssd_scan/{route_name}", "route": "cuda", "kernel_route": route_name,
+            "source": ssd.SOURCES[route_name], "replaces": ssd.REPLACES, "launches": n_route,
+            "launches_by_path": n_route_by, "max_abs_err": agree["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None})
+        print(f"time ssd_scan/{route_name} {shape.name} {dims}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of bound, {n_route} launches on the main path "
+              f"{n_route_by}, row check err/limit {agree['ratio']:.3g} [{card}]", flush=True)
     del inputs
 
     # zamba2-2.7b's widths (80 heads of 64, d_state 64) on the wgmma route,
@@ -2063,6 +2131,8 @@ def main() -> None:
               f"modelled {res.est_latency_us / 1e3:.4f} ms, row check err/limit "
               f"{agree['ratio']:.3g} [{card}]", flush=True)
     del inputs
+
+    print(f"phase 4 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 5: plan cells ----
     plan_cells(card)

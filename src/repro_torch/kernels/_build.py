@@ -55,6 +55,8 @@ SIGNATURES = {
     "ssd_scan_launch": [_P] * 10 + [_I] * 13 + [_P],
     "ssd_scan_wgmma_launch": [_P] * 9 + [_I] * 8 + [_P],
     "ssd_scan_wgmma_attributes": [_I, _I, _I, _P, _P],
+    "ssd_scan_mma_launch": [_P] * 9 + [_I] * 9 + [_P],
+    "ssd_scan_mma_attributes": [_I, _I, _I, _P, _P],
 }
 
 #: launches per kernel, and per kernel and route under "<kernel>/<route>":
@@ -161,6 +163,15 @@ def check(name: str, err: int) -> None:
     if err != 0:
         msg = library().repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def row_words(n: int, itemsize: int, rem: int, mod: int) -> int:
+    """32-bit words of a shared-memory row of ``n`` elements of ``itemsize``
+    bytes, padded so that the count is ``rem`` modulo ``mod``: the padding
+    the mma kernels give their rows for bank-conflict-free fragment reads
+    (each source computes the same in its own ``row_words``)."""
+    words = n * itemsize // 4
+    return words + (rem - words) % mod
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -17,11 +17,15 @@
 // work it needs (~80 GFLOP with the causal half of each chunk's L x L block)
 // is 0.08 ms at the bf16 tensor-core peak. These kernels do every product as
 // f32 FMAs on the CUDA cores, so they cannot go below FLOP / 67e12 s
-// (~1.2 ms). bf16 calls at the sizes csrc/ssd_scan_wgmma.cu is instantiated
-// for (dh 64, N 64 or 128, chunk 64-256) take that kernel instead, with
-// every product on wgmma and no y_inter scratch
-// (repro_torch/kernels/ssd_scan.py::route); this file runs the rest: f32,
-// chunk 32 and below, and other widths.
+// (~1.2 ms). So these kernels take only what the tensor-core routes do not
+// (repro_torch/kernels/ssd_scan.py::route decides before the launch): bf16
+// at the sizes csrc/ssd_scan_wgmma.cu is instantiated for (dh 64, N 64 or
+// 128, chunk 64-256) take that kernel, every other call up to dh 128, N 128
+// and chunk 256 whose chunk tiles fit a block takes csrc/ssd_scan_mma.cu
+// (split products on mma.sync, no y_inter scratch), and this file's state
+// and intra kernels run the rest: dh or N above 128, a chunk above 256, and
+// f32 chunk tiles too large for one block (chunk 256 at mamba2-780m
+// widths). Its chunk cumsum (ssd_cumsum_launch) runs first on every route.
 //
 // What the design does about it. The Pallas block holds an [L, L, nh] f32
 // decay tensor in VMEM (12.6 MB at L=256, nh=48); a Hopper block has 227 KB.

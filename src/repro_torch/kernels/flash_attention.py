@@ -118,11 +118,6 @@ def mma_threads(block_q: int) -> int:
     return 32 * min(-(-block_q // 16), MMA_WARPS)
 
 
-def _row_words(dp: int, itemsize: int, rem: int, mod: int) -> int:
-    words = dp * itemsize // 4
-    return words + (rem - words) % mod
-
-
 @functools.lru_cache(maxsize=None)
 def smem_bytes_mma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
     """Dynamic shared memory the mma kernel asks for: two stages of a K and
@@ -132,9 +127,9 @@ def smem_bytes_mma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
     4 mod 16; V: 4 words mod 16). The launch and the resource model both
     call this."""
     dp, kc = mma_head_dim(d), mma_sub_keys(d)
-    k_words = (_row_words(dp, 4, 8, 32) if itemsize == 4
-               else _row_words(dp, 2, 4, 16))
-    v_words = _row_words(dp, itemsize, 4, 16)
+    k_words = (_build.row_words(dp, 4, 8, 32) if itemsize == 4
+               else _build.row_words(dp, 2, 4, 16))
+    v_words = _build.row_words(dp, itemsize, 4, 16)
     return 4 * (2 * (-(-block_k // kc) * kc) * (k_words + v_words)
                 + mma_threads(block_q) // 2 * k_words)
 

@@ -23,8 +23,8 @@ For each candidate tile of a port kernel it reports:
   shared memory and threads allow, each wave taking one block's
   max(compute, bytes) time, with the card's compute rate (f32 on the CUDA
   cores for the FMA routes; bf16 on the tensor cores for the wgmma routes;
-  TF32 on the tensor cores over the products a product takes for flash
-  attention's mma route) and memory rate
+  TF32 or bf16 on the tensor cores over the products a product takes for
+  the mma routes of flash attention and the SSD scan) and memory rate
   split evenly among the resident blocks but never more than one SM's
   share to a block. Resident blocks per SM are what shared memory,
   threads and registers allow. Each ``csrc/*.cu`` states its terms.
@@ -219,6 +219,10 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
     return res if fits else dataclasses.replace(res, feasible=False)
 
 
+#: registers per thread the model gives the SSD mma kernel: what its launch
+#: bounds ask for (three CTAs an SM at dh 64); the state alone takes N / 2
+SSD_MMA_REGISTERS = 168
+
 #: registers per thread the model gives the SSD wgmma kernel, for its
 #: blocks per SM: a warpgroup's 64 columns of the state, the y tile and G
 #: (32 f32 each), P's two bf16 parts (32) and 48 for addresses, cs and loops
@@ -231,9 +235,11 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
     """The launches of the route the wrapper takes at one chunk length
     (``ssd_scan.route``), their times added: on ``wgmma`` the chunk cumsum
     and one chunk walk per (batch, head) on the tensor cores
-    (``csrc/ssd_scan_wgmma.cu``); on ``fma`` the cumsum, the state walk and
-    the intra-chunk kernel of ``csrc/ssd_scan.cu``. ``vmem_bytes`` is the
-    largest block's shared memory."""
+    (``csrc/ssd_scan_wgmma.cu``); on ``mma`` the cumsum and one chunk walk
+    per (batch, head) on split products (``csrc/ssd_scan_mma.cu``); on ``fma``
+    the cumsum, the state walk and the intra-chunk kernel of
+    ``csrc/ssd_scan.cu``. ``vmem_bytes`` is the largest block's shared
+    memory."""
     L = min(chunk, s)
     nc = s // L
     route = _ssd.route(_DTYPE_OF_ITEMSIZE[itemsize], L, dh, N)
@@ -256,6 +262,32 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
             # (twice: P's hi and lo parts) over whole diagonal tiles, G
             # recomputed for every head
             flops=b * nh * nc * (4 * L * dh * N + pairs * 2 * 64 * 64 * (N + 2 * dh)),
+            # x read and y written once; B and C once (the heads of a batch
+            # share them in L2); cs and dt read; the final state written
+            nbytes=(2 * b * s * nh * dh * itemsize + 2 * b * s * N * itemsize
+                    + b * s * nh * (4 + itemsize) + 4 * b * nh * dh * N))
+        launches = [cumsum, walk]
+        feasible = _fits(smem, threads, dev)
+        occupancy = blocks_per_sm(smem, threads, dev, regs)
+    elif route == "mma":
+        lp, rt = -(-L // 16) * 16, _ssd.MMA_ROW_TILE
+        # 16 x 8 tiles of G (and of P . x) at or below the diagonal, over
+        # row tiles of 32 rows
+        g_tiles = sum((r0 // 8 + 2) * 2 + 2 if lp - r0 >= rt else r0 // 8 + 2
+                      for r0 in range(0, lp, rt))
+        smem = _ssd.smem_bytes_mma(L, N, dh, itemsize)
+        threads = _ssd.mma_threads(dh)
+        regs = SSD_MMA_REGISTERS
+        walk = dict(
+            smem=smem, threads=threads, n_blocks=b * nh, regs=regs,
+            # three TF32 products a product for f32; for bf16 three bf16
+            # products (the f32 operand in three bf16 parts; G takes one)
+            peak=(dev.peak_flops_tf32 if itemsize == 4 else dev.peak_flops_bf16) / 3,
+            # per chunk: C.S_prev^T and the state update over the padded
+            # dh, G over the tiles at or below the diagonal, and P.x over
+            # the same tiles for every column of dh
+            flops=b * nh * nc * (4 * lp * threads // 2 * N
+                                 + g_tiles * 2 * 16 * 8 * (N + threads // 2)),
             # x read and y written once; B and C once (the heads of a batch
             # share them in L2); cs and dt read; the final state written
             nbytes=(2 * b * s * nh * dh * itemsize + 2 * b * s * N * itemsize

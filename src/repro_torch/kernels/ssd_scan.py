@@ -13,20 +13,35 @@ chunk:
 
 y = (y_intra + y_inter) rounded once to x's dtype; the final state is f32.
 
-``ssd_scan_cuda`` launches one of two hand-written Hopper kernels, chosen
-by :func:`route` before the launch. bf16 at dh in ``WGMMA_DH``, N in
-``WGMMA_N`` and a chunk in ``WGMMA_CHUNKS`` takes ``csrc/ssd_scan_wgmma.cu``
-(two launches: the chunk cumsum, then one chunk walk per (batch, head) on
-``wgmma`` with the state in registers). Every other call takes
-``csrc/ssd_scan.cu`` (three launches: the chunk cumsum, the state walk with
-the inter-chunk term, and the intra-chunk term, on f32 FMAs). A failed
-build or launch raises; neither route stands in for the other.
+``ssd_scan_cuda`` launches one of three hand-written Hopper kernels,
+chosen by :func:`route` before the launch, each after the chunk cumsum of
+``csrc/ssd_scan.cu``:
+
+* ``wgmma`` (``csrc/ssd_scan_wgmma.cu``): bf16 at dh in ``WGMMA_DH``, N in
+  ``WGMMA_N`` and a chunk in ``WGMMA_CHUNKS``; one chunk walk per (batch,
+  head) on ``wgmma`` with the state in registers;
+* ``mma`` (``csrc/ssd_scan_mma.cu``): every other call up to dh
+  ``MMA_MAX_DH``, N ``MMA_MAX_N`` and a chunk of ``MMA_MAX_CHUNK`` whose
+  chunk tiles fit one block's shared memory (f32; bf16 at chunk 32 or
+  another dh, N or chunk); one chunk walk per (batch, head) on
+  ``mma.sync`` with each f32 operand split into parts the tensor core
+  multiplies exactly (f32 inputs: two TF32 parts, three products a
+  product; bf16 inputs, where C, B and x are exact: the one f32 operand in
+  three bf16 parts, three bf16 products), the state in registers, no
+  y_inter scratch;
+* ``fma`` (``csrc/ssd_scan.cu``): what is left (dh or N above 128, a chunk
+  above 256, f32 chunk tiles too large for a block, such as chunk 256 at
+  mamba2-780m widths); the state walk with the inter-chunk term into an f32
+  y_inter scratch, then the intra-chunk term, on f32 FMAs.
+
+A failed build or launch raises; no route stands in for another.
 ``ssd_scan_plain`` computes the same function in plain torch over the same
 chunks, with the cumsum taken in the kernel's order, so the CPU tests reach
 the chunking, the recurrence and ``initial_state``. On the wgmma route it
 rounds to bf16 where that kernel feeds the tensor cores one bf16 value:
 x * w for the chunk's own state, and S_prev for the inter-chunk term (P
-enters that kernel's products as two bf16 parts, close enough to f32).
+enters that kernel's products as two bf16 parts, close enough to f32). On
+the other two it rounds nowhere: the split keeps f32.
 """
 from __future__ import annotations
 
@@ -39,7 +54,8 @@ from repro_torch.core.device import H100_SXM
 from repro_torch.kernels import _build
 
 SOURCES = {"fma": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-           "wgmma": "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu"}
+           "wgmma": "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
+           "mma": "src/repro_torch/kernels/csrc/ssd_scan_mma.cu"}
 REPLACES = "src/repro/kernels/ssd_scan.py:24"
 
 #: threads per CUDA block of the FMA route (state and intra kernels)
@@ -53,13 +69,80 @@ WGMMA_N = (64, 128)
 WGMMA_CHUNKS = (64, 128, 256)
 
 
+#: the mma route's limits: dh is padded inside the kernel to 32, 64 or 128
+#: (one warp per 16 columns), N to 64 or 128 and held in registers (N / 2
+#: floats a thread), and a chunk's cs and dt take at most 256 rows
+MMA_MAX_DH = 128
+MMA_MAX_N = 128
+MMA_MAX_CHUNK = 256
+#: rows of the mma kernel's row tile (the P buffer's rows)
+MMA_ROW_TILE = 32
+
+
 def route(dtype: torch.dtype, chunk: int, dh: int, N: int) -> str:
     """Which kernel runs a call at the chunk it runs (``min(chunk, s)``),
     decided before the launch: ``"wgmma"`` for bf16 at a size the wgmma
-    kernel is instantiated for, ``"fma"`` otherwise (f32, chunk 32, any
-    other dh or N)."""
-    return ("wgmma" if dtype == torch.bfloat16 and dh in WGMMA_DH
-            and N in WGMMA_N and chunk in WGMMA_CHUNKS else "fma")
+    kernel is instantiated for; else ``"mma"`` up to ``MMA_MAX_DH``,
+    ``MMA_MAX_N`` and ``MMA_MAX_CHUNK`` where one chunk's tiles fit a
+    block's shared memory; else ``"fma"``."""
+    if (dtype == torch.bfloat16 and dh in WGMMA_DH and N in WGMMA_N
+            and chunk in WGMMA_CHUNKS):
+        return "wgmma"
+    if (dh <= MMA_MAX_DH and N <= MMA_MAX_N and chunk <= MMA_MAX_CHUNK
+            and mma_plan(chunk, N, dh, 4 if dtype == torch.float32 else 2)[0]):
+        return "mma"
+    return "fma"
+
+
+def mma_warps(dh: int) -> int:
+    """Warps of an mma block: one per 16 columns of dh padded to 32, 64 or
+    128 (``SSD_MMA_CASE`` in its source lists the same); 0 above 128."""
+    return next((w for w in (2, 4, 8) if 16 * w >= dh), 0)
+
+
+def mma_threads(dh: int) -> int:
+    """The mma kernel's threads."""
+    return 32 * mma_warps(dh)
+
+
+def mma_state_cols(N: int) -> int:
+    """The state columns each warp of the mma kernel holds: N padded to 64
+    or 128 (``SSD_MMA_CASE`` lists both); 0 above 128."""
+    return next((n for n in (64, 128) if n >= N), 0)
+
+
+def _mma_bytes(chunk: int, N: int, dh: int, itemsize: int, stages: int,
+               pbufs: int) -> int:
+    lp = -(-chunk // 16) * 16
+    rem = 8 if itemsize == 4 else 4
+    cw = _build.row_words(mma_state_cols(N), itemsize, rem, 32)
+    xw = _build.row_words(16 * mma_warps(dh), itemsize, rem, 32)
+    return 4 * (stages * lp * (2 * cw + xw) + 8 * lp
+                + pbufs * MMA_ROW_TILE * _build.row_words(lp, 4, 8, 32))
+
+
+def mma_plan(chunk: int, N: int, dh: int, itemsize: int) -> Tuple[int, int]:
+    """(stages, P buffers) of the mma kernel: two chunks in flight and two
+    P buffers (one where a chunk has one row tile) where they fit one
+    block's shared memory, fewer stages first; (0, 0) where one of each
+    does not fit."""
+    pmax = 2 if -(-chunk // 16) * 16 > MMA_ROW_TILE else 1
+    for stages, pbufs in ((2, 2), (2, 1), (1, 2), (1, 1)):
+        if pbufs <= pmax and _mma_bytes(chunk, N, dh, itemsize, stages, pbufs) \
+                <= H100_SXM.smem_per_block:
+            return stages, pbufs
+    return 0, 0
+
+
+def smem_bytes_mma(chunk: int, N: int, dh: int, itemsize: int) -> int:
+    """Dynamic shared memory the mma kernel asks for: per stage the chunk's
+    C, B and x rows in the input type (rows padded to 16, N to 64 or 128,
+    dh to 16 per warp; each row padded to 8 words mod 32 for f32, 4 mod 32
+    for bf16); cs, dt, exp(cs) and w of two chunks in f32; P's buffers of 32
+    f32 rows, each padded to 8 words mod 32. 0 where it does not fit. The
+    launch and the resource model both call this."""
+    stages, pbufs = mma_plan(chunk, N, dh, itemsize)
+    return _mma_bytes(chunk, N, dh, itemsize, stages, pbufs) if stages else 0
 
 
 def _wgmma_smem(chunk: int, N: int, dh: int, stages: int) -> int:
@@ -270,7 +353,12 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
     lib = _build.library()
     ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             s0_ptr, cs.data_ptr())
-    if path == "wgmma":
+    if path == "mma":
+        err = lib.ssd_scan_mma_launch(
+            *ptrs, y.data_ptr(), S.data_ptr(), b, s, nh, dh, N, L, code, mma_threads(dh),
+            smem_bytes_mma(L, N, dh, x.element_size()), _build.stream_ptr(dev))
+        _build.check("ssd_scan_mma_launch", err)
+    elif path == "wgmma":
         err = lib.ssd_scan_wgmma_launch(
             *ptrs, y.data_ptr(), S.data_ptr(), b, s, nh, dh, N, L, wgmma_threads(L, N, dh),
             smem_bytes_wgmma(L, N, dh), _build.stream_ptr(dev))
@@ -296,4 +384,15 @@ def wgmma_attributes(chunk: int, N: int, dh: int = 64) -> Tuple[int, int]:
     err = _build.library().ssd_scan_wgmma_attributes(
         dh, N, chunk, ctypes.byref(regs), ctypes.byref(local))
     _build.check("ssd_scan_wgmma_attributes", err)
+    return regs.value, local.value
+
+
+def mma_attributes(dh: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(registers per thread, local bytes per thread) the compiler gave the
+    mma kernel at this head dim, state size and dtype; builds the
+    library."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _build.library().ssd_scan_mma_attributes(
+        dh, N, _build.DTYPE_CODES[dtype], ctypes.byref(regs), ctypes.byref(local))
+    _build.check("ssd_scan_mma_attributes", err)
     return regs.value, local.value

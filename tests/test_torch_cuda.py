@@ -1,8 +1,11 @@
 """repro_torch kernels on the card: each CUDA kernel against its plain
 version over the full legal grid of the CI shapes and a few odd shapes
 (row by row, within ``conformance.PLAIN_REL``), the SSD scan also with an
-initial state at every chunk, the bf16 SSD scan on its wgmma route at every
-instantiated (chunk, N) over an odd number of chunks, bf16 flash attention
+initial state at every chunk on the route each takes, the bf16 SSD scan on
+its wgmma route at every instantiated (chunk, N) over an odd number of
+chunks, the SSD scan on its mma route (f32 and bf16, chunks 32-256, odd dh
+and N, with and without an initial state) and on the FMA kernels at the
+sizes the mma kernel does not take, bf16 flash attention
 on both of its routes and f32 flash attention on the mma route (the FMA
 kernel where the mma kernel's two K/V stages do not fit, and above d = 128)
 with ``sq != sk``, ``q_offset``, odd K-tile walks and short query blocks at
@@ -123,9 +126,14 @@ def test_ssd_kernel_threads_an_initial_state(chunk, dtype, card):
     x, dt, A, B, C = conformance.make_inputs(shape, device=card)
     gen = torch.Generator(device=card).manual_seed(0)
     s0 = 0.3 * torch.randn(2, 4, 32, 48, generator=gen, device=card)
+    # dh 32 and N 48: the wgmma kernel has no such size, the mma kernel
+    # takes every chunk, f32 and bf16
+    assert ssd.route(x.dtype, chunk, 32, 48) == "mma"
     for init in (None, s0):
+        before = _build.LAUNCHES["ssd_scan/mma"]
         got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=init)
         torch.cuda.synchronize()
+        assert _build.LAUNCHES["ssd_scan/mma"] == before + 1
         want = ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init)
         agree = conformance.agree_with_plain(got, want)
         assert agree["passed"], (init is None, agree)
@@ -149,6 +157,53 @@ def test_ssd_wgmma_matches_plain(chunk, N, with_state, card):
     assert _build.LAUNCHES["ssd_scan/wgmma"] == before + 1
     agree = conformance.agree_with_plain(
         got, ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init))
+    assert agree["passed"], agree
+
+
+#: (dtype, dh, N, chunk) the mma kernel takes among f32 and bf16, odd and
+#: full-width (dh, N) and chunks 32-256 (route() is a pure function of the
+#: sizes: the list is the same on every machine)
+SSD_MMA_CASES = [(dtype, dh, N, chunk) for dtype in ("float32", "bfloat16")
+                 for dh, N in ((24, 40), (32, 48), (64, 128)) for chunk in (32, 64, 128, 256)
+                 if ssd.route(conformance._DTYPES[dtype], chunk, dh, N) == "mma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype,dh,N,chunk", SSD_MMA_CASES)
+def test_ssd_mma_matches_plain(dtype, dh, N, chunk, with_state, card):
+    # three chunks (an odd count against the two-stage ring), three heads
+    shape = KernelShape("ssd_mma", "ssd_scan",
+                        {"b": 2, "s": 3 * chunk, "nh": 3, "dh": dh, "N": N}, dtype)
+    x, dt, A, B, C = conformance.make_inputs(shape, device=card)
+    gen = torch.Generator(device=card).manual_seed(chunk + N + dh)
+    init = (0.3 * torch.randn(2, 3, dh, N, generator=gen, device=card)
+            if with_state else None)
+    before = _build.LAUNCHES["ssd_scan/mma"]
+    got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_scan/mma"] == before + 1
+    agree = conformance.agree_with_plain(
+        got, ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init))
+    assert agree["passed"], agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh,N,chunk", [
+    ("float32", 64, 128, 256),   # f32 chunk tiles of 256 rows do not fit a block
+    ("float32", 32, 160, 64),    # N above 128
+    ("bfloat16", 32, 160, 64),
+])
+def test_ssd_fma_takes_what_the_mma_kernel_cannot(dtype, dh, N, chunk, card):
+    shape = KernelShape("ssd_fma", "ssd_scan",
+                        {"b": 1, "s": 2 * chunk, "nh": 2, "dh": dh, "N": N}, dtype)
+    x, dt, A, B, C = conformance.make_inputs(shape, device=card)
+    assert ssd.route(x.dtype, chunk, dh, N) == "fma"
+    before = _build.LAUNCHES["ssd_scan/fma"]
+    got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_scan/fma"] == before + 1
+    agree = conformance.agree_with_plain(got, ssd_scan_plain(x, dt, A, B, C, chunk=chunk))
     assert agree["passed"], agree
 
 

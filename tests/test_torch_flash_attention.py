@@ -11,7 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from torch_parity import draw, grid_cases, max_err
+from torch_parity import draw, grid_cases, max_err, tf32, tf32_product, tf32_truncate
 
 from repro.kernels import ops as jops
 from repro_torch.core.design_space import KernelPoint, KernelTemplate
@@ -262,31 +262,6 @@ def test_mma_shared_memory_threads_and_head_dims():
 
 
 # -- the mma route's arithmetic, emulated in plain torch ---------------------
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32``: round to nearest, ties away from zero, keeping
-    10 mantissa bits (the magnitude bits rounded on the int32 view)."""
-    bits = x.float().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _truncate(x: torch.Tensor) -> torch.Tensor:
-    """An f32 value as the tensor core reads a TF32 operand: the low 13
-    mantissa bits dropped."""
-    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _product(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
-    """a @ b on the tensor cores' TF32 operands: each split into big =
-    tf32(x) and small = x - big (read truncated), and small_a.big_b +
-    big_a.small_b + big_a.big_b (``terms`` 3; each TF32 product is exact in
-    f32), or one product of the rounded operands (``terms`` 1)."""
-    a_big, b_big = _tf32(a), _tf32(b)
-    if terms == 1:
-        return a_big @ b_big
-    return (_truncate(a - a_big) @ b_big + a_big @ _truncate(b - b_big)
-            + a_big @ b_big)
-
-
 def _flash_emulated(q, k, v, *, causal, block_q, block_k, q_offset=0, terms=3):
     """The mma route's walk: ``flash_attention_plain``'s tiles, mask and
     online softmax, with Q.K^T and P.V taken as the kernel takes them."""
@@ -307,7 +282,7 @@ def _flash_emulated(q, k, v, *, causal, block_q, block_k, q_offset=0, terms=3):
         for t in range(k_tiles_walked(qt, bq, bk, sk, causal=causal, q_offset=q_offset)):
             k_t = kf[..., t * bk:(t + 1) * bk, :]
             v_t = vf[..., t * bk:(t + 1) * bk, :]
-            s = _product(q_t, k_t.transpose(-1, -2).expand(b, kh, g, d, bk), terms)
+            s = tf32_product(q_t, k_t.transpose(-1, -2).expand(b, kh, g, d, bk), terms)
             if causal:
                 k_pos = t * bk + torch.arange(bk)
                 s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
@@ -315,7 +290,7 @@ def _flash_emulated(q, k, v, *, causal, block_q, block_k, q_offset=0, terms=3):
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + _product(p, v_t.expand(b, kh, g, bk, d), terms)
+            acc = acc * corr[..., None] + tf32_product(p, v_t.expand(b, kh, g, bk, d), terms)
             m = m_new
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         out[..., qt * bq:(qt + 1) * bq, :] = acc / l[..., None]
@@ -326,13 +301,13 @@ def test_tf32_emulation_rounds_to_nearest_away_from_zero():
     # ties (half a unit of 2**-10) go away from zero, either sign
     x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11, -(1.0 + 2 ** -11),
                       1.0 + 2 ** -12])
-    assert _tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10),
+    assert tf32(x).tolist() == [1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10),
                                  1.0]
     r = torch.randn(4096, generator=torch.Generator().manual_seed(0))
-    big = _tf32(r)
+    big = tf32(r)
     assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
     assert ((r - big).abs() <= r.abs() * 2.0 ** -11).all()
-    small = _truncate(r - big)
+    small = tf32_truncate(r - big)
     assert ((r - big - small).abs() <= r.abs() * 2.0 ** -21).all()
 
 

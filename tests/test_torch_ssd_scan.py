@@ -2,11 +2,14 @@
 (interpret mode) over the full chunk grid of ``ssd_s256_f32`` and the
 reference's shape sweep, the torch oracle against the jnp one,
 ``initial_state`` threading, the route rule (``wgmma`` for bf16 at the
-sizes its kernel is instantiated for, ``fma`` otherwise) with the wgmma
-route's plain version against the Pallas kernel and the FMA route, the
-resource model at mamba2-780m widths and on both routes, and a walk that
-drops the carried state failing both the row-wise kernel-against-plain
-check and the oracle gate."""
+sizes its kernel is instantiated for, ``mma`` for the rest whose chunk
+tiles fit a block, ``fma`` for what is left) with the wgmma route's plain
+version against the Pallas kernel and the plain version of the other
+routes, the resource model at mamba2-780m widths and on all three routes,
+the mma route's walk emulated with its split products against the plain
+version (and one TF32 product a product missing it), and a walk that drops the
+carried state failing both the row-wise kernel-against-plain check and the
+oracle gate."""
 import itertools
 import re
 from pathlib import Path
@@ -14,14 +17,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from torch_parity import as_np, grid_cases, max_err
+from torch_parity import as_np, bf16x3_product, grid_cases, max_err, tf32_product
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core.design_space import KernelTemplate, baseline_kernel_point
 from repro_torch.core.device import H100_SXM
-from repro_torch.core.kernel_space import (KERNEL_SHAPE_BY_NAME, kernel_resources,
-                                           tile_grid)
+from repro_torch.core.kernel_space import (KERNEL_SHAPE_BY_NAME, KernelShape,
+                                           kernel_resources, tile_grid)
 from repro_torch.kernels import conformance, ops, ref
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.kernels.resource_model import ssd_scan_resources
@@ -124,10 +127,10 @@ def test_ssd_resources_at_full_width():
         if res.route == "wgmma":  # chunks 64, 128 and 256
             assert res.threads == ssd.wgmma_threads(L, 128) == 288
             assert res.vmem_bytes == ssd.smem_bytes_wgmma(L, 128, 64)
-        else:  # chunk 32: wgmma's M is 64
-            assert L == 32 and res.threads == ssd.THREADS
-            assert res.vmem_bytes == max(ssd.smem_bytes_intra(L, 128, 64),
-                                         ssd.smem_bytes_state(L, 128, 64))
+        else:  # chunk 32: wgmma's M is 64; split products on mma.sync
+            assert L == 32 and res.route == "mma"
+            assert res.threads == ssd.mma_threads(64) == 128
+            assert res.vmem_bytes == ssd.smem_bytes_mma(L, 128, 64, 2) == 50_176
         assert res.vmem_bytes <= H100_SXM.smem_per_block
         # never below the bytes the scan must move over the memory rate
         min_bytes = 2 * (2 * 8 * 4096 * 48 * 64 + 8 * 4096 * (48 + 2 * 128))
@@ -143,7 +146,12 @@ def test_ssd_supported_agrees_with_the_launcher(chunk, ok):
     # intra kernel, min(L, 32) for the state kernel) divide it
     launcher = chunk % min(chunk, 64) == 0 and chunk % min(chunk, 32) == 0
     assert ssd.supported(chunk, 128, 64) == launcher == ok
-    assert ssd_scan_resources(1, 4 * chunk, 2, 64, 128, chunk).feasible == ok
+    # N 160 is above the mma kernel's 128: these calls take the FMA kernels
+    assert ssd.route(torch.bfloat16, chunk, 64, 160) == "fma"
+    assert ssd_scan_resources(1, 4 * chunk, 2, 64, 160, chunk).feasible == ok
+    # at N 128 the tensor-core routes take every one of these chunks
+    res = ssd_scan_resources(1, 4 * chunk, 2, 64, 128, chunk)
+    assert res.feasible and res.route in ("mma", "wgmma")
 
 
 def _drop_carried_state(x, dt, A, B, C, *, chunk, initial_state=None):
@@ -201,11 +209,19 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     (torch.bfloat16, 128, 64, 128, "wgmma"),
     (torch.bfloat16, 256, 64, 128, "wgmma"),
     (torch.bfloat16, 256, 64, 64, "wgmma"),  # zamba2-2.7b's state
-    (torch.float32, 256, 64, 128, "fma"),  # f32 stays on the FMA kernel
-    (torch.bfloat16, 32, 64, 128, "fma"),  # wgmma's M is 64
-    (torch.bfloat16, 192, 64, 128, "fma"),  # a chunk it has no tile for
-    (torch.bfloat16, 256, 32, 128, "fma"),  # another head dim
-    (torch.bfloat16, 256, 64, 48, "fma"),  # another state size
+    (torch.float32, 256, 64, 128, "fma"),  # f32 chunk tiles beyond a block
+    (torch.bfloat16, 32, 64, 128, "mma"),  # wgmma's M is 64
+    (torch.bfloat16, 192, 64, 128, "mma"),  # a chunk wgmma has no tile for
+    (torch.bfloat16, 256, 32, 128, "mma"),  # another head dim
+    (torch.bfloat16, 256, 64, 48, "mma"),  # another state size
+    (torch.float32, 32, 64, 128, "mma"),  # f32 at mamba2-780m widths
+    (torch.float32, 128, 64, 128, "mma"),  # one stage still fits
+    (torch.float32, 256, 32, 32, "mma"),  # ssd_s256_f32
+    (torch.float32, 32, 24, 40, "mma"),  # ssd_odd_b2_s96_f32
+    (torch.bfloat16, 48, 20, 33, "mma"),  # rows, dh and N padded inside
+    (torch.float32, 64, 32, 160, "fma"),  # N above 128
+    (torch.bfloat16, 64, 192, 64, "fma"),  # dh above 128
+    (torch.bfloat16, 512, 32, 32, "fma"),  # a chunk above 256
 ])
 def test_route_is_decided_by_dtype_chunk_head_dim_and_state(dtype, chunk, dh, N, want):
     assert ssd.route(dtype, chunk, dh, N) == want
@@ -266,10 +282,11 @@ def test_wgmma_route_plain_matches_pallas_and_the_fma_route(N, chunk, with_state
     want_y, want_s = jops.ssd_scan(*jin, chunk=chunk, interpret=True,
                                    initial_state=None if s0 is None else jnp.asarray(s0))
     assert max_err(y, want_y) <= tol and max_err(st, want_s) <= tol
-    # the FMA route's plain version: the same bf16 values in f32 (exactly
-    # representable) with no intermediate rounding, y rounded once
+    # the plain version of the f32 routes: the same bf16 values in f32
+    # (exactly representable) with no intermediate rounding, y rounded once;
+    # f32 chunk tiles of 256 rows do not fit the mma kernel's block
     f32 = [t.float() for t in bf]
-    assert ssd.route(torch.float32, chunk, 64, N) == "fma"
+    assert ssd.route(torch.float32, chunk, 64, N) == ("fma" if chunk == 256 else "mma")
     fy, fs = ssd.ssd_scan_plain(*f32, chunk=chunk, initial_state=init)
     assert max_err(y, fy.to(torch.bfloat16)) <= tol and max_err(st, fs) <= tol
     # and the rounding of x * w and S_prev does show
@@ -277,17 +294,165 @@ def test_wgmma_route_plain_matches_pallas_and_the_fma_route(N, chunk, with_state
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("N", [40, 64, 128])
+@pytest.mark.parametrize("N", [40, 64, 128, 160])
 @pytest.mark.parametrize("dh", [24, 64])
 def test_resource_model_routes_and_refuses_as_the_wrapper(itemsize, N, dh):
     dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    seen = set()
     for chunk in (16, 32, 48, 64, 96, 128, 192, 256):
         res = ssd_scan_resources(2, 512, 3, dh, N, chunk, itemsize=itemsize)
         path = ssd.route(dtype, chunk, dh, N)
         assert res.route == path
+        seen.add(path)
         if path == "wgmma":  # every routed size is instantiated and fits
             assert res.feasible and res.vmem_bytes == ssd.smem_bytes_wgmma(chunk, N, dh)
             assert res.blocks_per_sm == ssd.wgmma_ctas_per_sm(chunk, N, dh)
-        else:
+        elif path == "mma":  # routed only where its block fits: it launches
+            assert res.feasible and res.threads == ssd.mma_threads(dh)
+            assert res.vmem_bytes == ssd.smem_bytes_mma(chunk, N, dh, itemsize) > 0
+            assert res.vmem_bytes <= H100_SXM.smem_per_block
+        else:  # the FMA kernels refuse what supported() refuses
             assert res.feasible == (ssd.supported(chunk, N, dh)
                                     and res.vmem_bytes <= H100_SXM.smem_per_block)
+    # N above 128 leaves only the FMA kernels; below it the mma kernel takes
+    # every chunk up to 256 at bf16
+    if N > 128:
+        assert seen == {"fma"}
+    else:
+        assert "mma" in seen and (itemsize == 4 or "fma" not in seen)
+
+
+def test_mma_smem_formula_and_threads():
+    # per stage C, B (rows of N padded to 64 or 128) and x (dh padded to 16 a
+    # warp) in the input type, rows padded to 8 words mod 32 (f32) or 4 mod
+    # 32 (bf16); cs, dt, exp(cs) and w of two chunks in f32; P's buffers of
+    # 32 f32 rows padded to 8 words mod 32; two stages and one P buffer at
+    # chunk 32
+    assert ssd.mma_plan(32, 128, 64, 2) == (2, 1)
+    assert ssd.smem_bytes_mma(32, 128, 64, 2) == \
+        4 * (2 * 32 * (68 + 68 + 36) + 8 * 32 + 32 * 40) == 50_176
+    # ssd_s256_f32 at chunk 256 (N 32 held as 64): one stage, one P buffer
+    assert ssd.mma_plan(256, 32, 32, 4) == (1, 1)
+    assert ssd.smem_bytes_mma(256, 32, 32, 4) == \
+        4 * (256 * (72 + 72 + 40) + 8 * 256 + 32 * 264) == 230_400
+    # ssd_odd_b2_s96_f32 (dh 24 -> 32, N 40 -> 64) at chunk 32
+    assert ssd.smem_bytes_mma(32, 40, 24, 4) == \
+        4 * (2 * 32 * (72 + 72 + 40) + 8 * 32 + 32 * 40) == 53_248
+    # rows padded to 16: chunk 40 holds 48 rows, two row tiles, two buffers
+    assert ssd.mma_plan(40, 48, 32, 2) == (2, 2)
+    assert ssd.smem_bytes_mma(40, 48, 32, 2) == \
+        4 * (2 * 48 * (36 + 36 + 36) + 8 * 48 + 2 * 32 * 72)
+    # f32 at mamba2-780m widths: one stage at chunk 128, none at 256
+    assert ssd.mma_plan(128, 128, 64, 4) == (1, 2)
+    assert ssd.mma_plan(256, 128, 64, 4) == (0, 0)
+    assert ssd.smem_bytes_mma(256, 128, 64, 4) == 0
+    for args in [(32, 128, 64, 2), (256, 32, 32, 4), (128, 128, 64, 4), (256, 48, 32, 4)]:
+        assert 0 < ssd.smem_bytes_mma(*args) <= H100_SXM.smem_per_block
+    # one warp per 16 columns of dh padded to 32, 64 or 128; the state held
+    # as 64 or 128 columns
+    assert [ssd.mma_warps(d) for d in (1, 16, 24, 32, 33, 48, 64, 65, 128, 129)] == \
+        [2, 2, 2, 2, 4, 4, 4, 8, 8, 0]
+    assert [ssd.mma_threads(d) for d in (16, 24, 64, 96)] == [64, 64, 128, 256]
+    assert [ssd.mma_state_cols(n) for n in (1, 32, 40, 64, 65, 128, 129)] == \
+        [64, 64, 64, 64, 128, 128, 0]
+
+
+def test_mma_dispatch_instantiates_every_routed_size():
+    src = (Path(__file__).resolve().parents[1] / ssd.SOURCES["mma"]).read_text()
+    cases = {tuple(map(int, m)) for m in
+             re.findall(r"^\s*SSD_MMA_CASE\((\d+), (\d+)\)", src, re.M)}
+    routed = {(ssd.mma_warps(d), ssd.mma_state_cols(n) // 8)
+              for d in range(1, ssd.MMA_MAX_DH + 1) for n in range(1, ssd.MMA_MAX_N + 1)}
+    assert cases == routed == set(itertools.product((2, 4, 8), (8, 16)))
+    # and the C side's limits are the Python side's
+    for name, value in (("MAX_L", ssd.MMA_MAX_CHUNK), ("MAX_N", ssd.MMA_MAX_N),
+                        ("RT", ssd.MMA_ROW_TILE)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+
+
+def _ssd_emulated(x, dt, A, B, C, *, chunk, initial_state=None, terms=3):
+    """The mma route's walk, chunk by chunk, with every product taken as the
+    kernel takes it (f32 inputs: ``tf32_product`` with ``terms``; bf16
+    inputs: ``bf16x3_product``, the f32 operand in three bf16 parts):
+    acc = (C . S_prev^T) exp(cs_l); P = G exp(cs_l - cs_s) dt_s, masked to
+    s <= l, with G = C . B^T; acc += P . x; y = acc rounded once; then
+    S <- S exp(cs_L) + (x w)^T . B."""
+    b, s, nh, dh = x.shape
+    N = B.shape[-1]
+    L = min(chunk, s)
+    nc = s // L
+    product = (bf16x3_product if x.dtype == torch.bfloat16
+               else lambda u, v: tf32_product(u, v, terms))
+    cs = ssd.chunk_cumsum(dt, A, L).view(b, nc, L, nh)
+    xf = x.float().view(b, nc, L, nh, dh)
+    dtf = dt.float().view(b, nc, L, nh)
+    Bf, Cf = B.float().view(b, nc, L, N), C.float().view(b, nc, L, N)
+    S = (torch.zeros(b, nh, dh, N) if initial_state is None
+         else initial_state.float().clone())
+    y = torch.empty(b, nc, L, nh, dh)
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    for c in range(nc):
+        csc = cs[:, c]
+        G = product(Cf[:, c], Bf[:, c].transpose(-1, -2))
+        for h in range(nh):
+            csh = csc[..., h]
+            decay = torch.exp(csh[:, :, None] - csh[:, None, :])
+            P = torch.where(causal, G * decay * dtf[:, c, None, :, h], torch.zeros(()))
+            acc = product(Cf[:, c], S[:, h].transpose(-1, -2)) \
+                * torch.exp(csh)[..., None]
+            y[:, c, :, h] = acc + product(P, xf[:, c, :, h])
+        w = dtf[:, c] * torch.exp(csc[:, -1:, :] - csc)
+        xw = (xf[:, c] * w[..., None]).permute(0, 2, 3, 1)  # [b, nh, dh, L]
+        S = S * torch.exp(csc[:, -1])[..., None, None] \
+            + product(xw, Bf[:, c][:, None])
+    return y.reshape(b, s, nh, dh).to(x.dtype), S
+
+
+def _mma_cases():
+    shapes = [KERNEL_SHAPE_BY_NAME["ssd_s256_f32"],
+              KernelShape("ssd_odd_b2_s96_f32", "ssd_scan",
+                          {"b": 2, "s": 96, "nh": 3, "dh": 24, "N": 40}, "float32")]
+    return [pytest.param(shape, d["chunk"], id=f"{shape.name}-chunk={d['chunk']}")
+            for shape in shapes for d in tile_grid(shape)]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("shape,chunk", _mma_cases())
+def test_split_tf32_walk_holds_the_f32_cells_to_their_plain_version(shape, chunk, with_state):
+    inputs = conformance.make_inputs(shape)
+    p = shape.params
+    assert ssd.route(torch.float32, chunk, p["dh"], p["N"]) == "mma"
+    init = (0.3 * torch.from_numpy(np.random.default_rng(chunk).standard_normal(
+        (p["b"], p["nh"], p["dh"], p["N"]))).float()) if with_state else None
+    want = ssd.ssd_scan_plain(*inputs, chunk=chunk, initial_state=init)
+    got = _ssd_emulated(*inputs, chunk=chunk, initial_state=init)
+    for part in (0, 1):  # y and the final state, each at PLAIN_REL
+        agree = conformance.agree_with_plain(got[part], want[part])
+        assert agree["passed"] and agree["ratio"] < 0.25, (part, agree)
+
+
+def test_split_walk_holds_bf16_at_chunk_32_to_its_plain_version():
+    # bf16 C, B and x are exact: G takes one bf16 product, the rest three
+    # (the f32 operand in three bf16 parts)
+    rng = np.random.default_rng(5)
+    x, dt, A, B, C = _np_inputs(rng, 1, 128, 3, 64, 128)
+    bf = [torch.from_numpy(a).to(torch.bfloat16) for a in (x, dt)] + \
+        [torch.from_numpy(A)] + [torch.from_numpy(a).to(torch.bfloat16) for a in (B, C)]
+    assert ssd.route(torch.bfloat16, 32, 64, 128) == "mma"
+    agree = conformance.agree_with_plain(_ssd_emulated(*bf, chunk=32),
+                                         ssd.ssd_scan_plain(*bf, chunk=32))
+    assert agree["passed"], agree
+
+
+def test_one_tf32_product_would_not_hold_the_f32_scan_to_its_plain_version():
+    # why the route splits: the same walk with one TF32 product a product
+    # (10 mantissa bits) misses PLAIN_REL by far, in y and in the state
+    shape = KERNEL_SHAPE_BY_NAME["ssd_s256_f32"]
+    inputs = conformance.make_inputs(shape)
+    want = ssd.ssd_scan_plain(*inputs, chunk=64)
+    one = _ssd_emulated(*inputs, chunk=64, terms=1)
+    three = _ssd_emulated(*inputs, chunk=64, terms=3)
+    for part in (0, 1):
+        miss = conformance.agree_with_plain(one[part], want[part])
+        assert not miss["passed"] and miss["ratio"] > 4, (part, miss)
+        assert conformance.agree_with_plain(three[part], want[part])["ratio"] < 0.25

@@ -36,6 +36,58 @@ def max_err(a, b) -> float:
     return float(np.max(np.abs(a - b))) if a.size else 0.0
 
 
+# ---------------------------------------------------------------------------
+# the mma routes' arithmetic: split TF32 on the tensor cores, emulated
+# ---------------------------------------------------------------------------
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round to nearest, ties away from zero, keeping
+    10 mantissa bits (the magnitude bits rounded on the int32 view)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """An f32 value as the tensor core reads a TF32 operand: the low 13
+    mantissa bits dropped."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b on the tensor cores' TF32 operands: each split into big =
+    tf32(x) and small = x - big (read truncated), and small_a.big_b +
+    big_a.small_b + big_a.big_b (``terms`` 3; each TF32 product is exact in
+    f32; an operand exact in TF32, such as a bf16 value, has small = 0, so
+    its terms vanish as the kernels drop them), or one product of the
+    rounded operands (``terms`` 1)."""
+    a_big, b_big = tf32(a), tf32(b)
+    if terms == 1:
+        return a_big @ b_big
+    return (tf32_truncate(a - a_big) @ b_big + a_big @ tf32_truncate(b - b_big)
+            + a_big @ b_big)
+
+
+def bf16x3(x: torch.Tensor):
+    """x as hi + mid + lo, each rounded to bf16 from what is left before it
+    (each subtraction is exact): ``(lo, mid, hi)``, the order the SSD mma
+    kernel multiplies them in on bf16 inputs."""
+    hi = x.float().to(torch.bfloat16).float()
+    mid = (x - hi).to(torch.bfloat16).float()
+    return (x - hi - mid).to(torch.bfloat16).float(), mid, hi
+
+
+def bf16x3_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b on bf16 tensor-core products, one operand exact in bf16 and the
+    other taken in its three bf16 parts, small first (each product of two
+    bf16 values is exact in f32)."""
+    def exact(t):
+        return torch.equal(t, t.to(torch.bfloat16).float())
+
+    if exact(b):
+        return sum(p @ b for p in bf16x3(a))
+    assert exact(a), "one operand must be exact in bf16"
+    return sum(a @ p for p in bf16x3(b))
+
+
 def grid_cases(shapes):
     """One pytest param per legal tile point of each shape."""
     from repro_torch.core.kernel_space import tile_grid
