@@ -19,8 +19,9 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    or ``scalar``), the others must be refused; then flash attention's card
    cases in bf16 and f32, each on the route ``flash_attention.route``
    names (``sq != sk``, ``q_offset`` of 64, 0 and -32, non-causal, odd
-   K-tile walks, d = 64, 96, 128 and 192, 256-row, 32-row and one-row query
-   blocks), the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
+   K-tile walks, d = 64, 96, 128 and 192, 512-, 256-, 32-row and one-row
+   query blocks, K blocks of 256 and 512 keys: ``wgmma``'s passes and
+   sub-tiles, ``mma``'s ring of partial tiles), the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
    state size, with and without an initial state, five chunks of three
    heads), the SSD scan's on ``mma`` (f32 and bf16, chunks 32-256, dh/N
    24/40, 32/48 and 64/128, with and without an initial state) and on the
@@ -31,8 +32,8 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    full-width shape (vecmul and rmsnorm: greedy, 2 iterations; flash
    attention and the SSD scan: the default ensemble with the surrogate
    gate, 3 iterations, the gate's factor 1.5 for flash attention, whose
-   feasible tiles are modelled within 2.0x of each other, and 3.0 for the
-   SSD scan; budget 3 and the 2 best measured by the
+   tiles (all 32 on ``wgmma``) are modelled within 2.0x of each other, and
+   3.0 for the SSD scan; budget 3 and the 2 best measured by the
    promotion ladder for all): launch counts are set to 0 just before each
    run and read just after (flash attention and the SSD scan must have run
    on ``wgmma``, rmsnorm on ``registers``), rows must be gate-checked on
@@ -56,14 +57,15 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    again must resume all 10 cells with no launch and no evaluation. Then
    one full-width ``dse --objective pareto`` cell on flash attention
    (ensemble, 3 iterations, the 2 leading front members measured), whose
-   launches must be on ``wgmma`` (and may be on ``mma``, which takes the
-   cell's 256- and 512-row tiles); its front and measured members are
-   printed;
+   launches must all be on ``wgmma``, which takes every tile of the cell;
+   its front and measured members are printed;
 4. at each full-width default point, the kernel's, the plain version's and
    (where one exists) one PyTorch library call's times from CUDA events,
-   beside the roofline bound; then the flash kernel's time, TFLOP/s,
-   shared memory, registers (model and compiler), CTAs per SM and route at
-   every feasible full-width tile; flash attention's ``mma`` route at
+   beside the roofline bound (flash attention at the shipped 512 x 512,
+   held against its plain version); then the flash kernel's time,
+   TFLOP/s, shared memory, registers (model and compiler), CTAs per SM and
+   route at every full-width tile, each of which must be feasible and on
+   ``wgmma``; flash attention's ``mma`` route at
    ``attn_s128_f32``'s default tile (kernel, plain version, SDPA, bound,
    launches) and its time at every feasible tile of ``attn_s128_f32`` and
    ``attn_s256_gqa_bf16`` beside SDPA's and the resource model's
@@ -1560,10 +1562,12 @@ def main() -> None:
         del inputs, variants
 
     # the flash cases: sq != sk, q_offset, non-causal, odd K-tile walks (5
-    # tiles of 64 against 2 stages) at d = 64 and 128 on wgmma (bf16); d =
-    # 96, a 256-row tile and short query blocks (32 rows, one row) on the
-    # mma kernel, and f32 on it where its K/V stages fit; d = 192 and the
-    # larger f32 stages on the FMA kernel
+    # tiles of 64 against 2 stages) at d = 64 and 128 on wgmma (bf16), whose
+    # 256- and 512-row tiles run in passes and 256- and 512-key tiles (320
+    # where the sequence is) in sub-tiles; d = 96, a 320-key tile and short
+    # query blocks (32 rows, one row) on the mma kernel, and f32 on it at
+    # every tile, its ring holding part of a tile where two whole ones do
+    # not fit; d = 192 on the FMA kernel where its one stage fits
     for dtype in (torch.bfloat16, torch.float32):
         n_ok = 0
         worst = 0.0
@@ -1572,14 +1576,15 @@ def main() -> None:
             for sq, sk, q_offset, causal in [(128, 256, 0, True), (128, 320, 64, True),
                                              (128, 256, -32, True), (192, 320, 0, False),
                                              (256, 128, 0, True), (32, 256, 224, True),
-                                             (1, 256, 255, True)]:
+                                             (1, 256, 255, True), (512, 512, 64, True)]:
                 gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
                 q, k, v = ((0.3 * torch.randn(2, s_, hh, d, generator=gen, device=dev)
                             ).to(dtype) for s_, hh in ((sq, 4), (sk, 2), (sk, 2)))
-                for bq in (64, 128, 256):
+                for bq in (64, 128, 256, 512):
                     for bk in fa.WGMMA_BLOCKS:
                         bq_, bk_ = min(bq, sq), min(bk, sk)
-                        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or not \
+                        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or \
+                                (bk > sk and bk // 2 >= sk) or not \
                                 flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_,
                                                           q.element_size()).feasible:
                             continue
@@ -1595,9 +1600,10 @@ def main() -> None:
                         routes[key] = routes.get(key, 0) + 1
                         n_ok += 1
         print(f"cases flash_attention {str(dtype).split('.')[1]}: {n_ok} runs (sq != sk, "
-              f"q_offset 64/0/-32, non-causal, odd walks, d 64/96/128/192, block_q 256, 32 "
-              f"and 1 query rows) agree with the plain version row by row (worst row "
-              f"err/limit {worst:.3g}); runs per route {routes}", flush=True)
+              f"q_offset 64/0/-32, non-causal, odd walks, d 64/96/128/192, block_q 512, "
+              f"256, 32 and 1 query rows, block_k 512/320/256) agree with the plain "
+              f"version row by row (worst row err/limit {worst:.3g}); runs per route "
+              f"{routes}", flush=True)
     # the bf16 SSD scan on its wgmma route at every instantiated (chunk, N),
     # with and without an initial state, over five chunks of three heads
     n_ok = 0
@@ -1689,9 +1695,8 @@ def main() -> None:
     search = {
         "vecmul": ["--strategy", "greedy", "--iterations", "2"],
         "rmsnorm": ["--strategy", "greedy", "--iterations", "2"],
-        # the cell's feasible tiles (eight on wgmma, four on mma, each
-        # causal or not) are modelled within 2.0x of each other: a factor
-        # of 3.0 could never prune there
+        # the cell's 32 tiles, all on wgmma, are modelled within 3.7x of
+        # each other, and 12 of each mask alike
         "flash_attention": ["--strategy", "ensemble", "--gate-factor", "1.5",
                             "--iterations", "3"],
         "ssd_scan": ["--strategy", "ensemble", "--gate-factor", "3.0",
@@ -1727,6 +1732,9 @@ def main() -> None:
                      "ssd_scan": "wgmma"}.get(kernel)
         if new_route and route_counts.get(f"{kernel}/{new_route}", 0) == 0:
             fail(f"{kernel}: the main path never launched the {new_route} kernel")
+        if kernel == "flash_attention" and any(
+                n for k, n in route_counts.items() if k != "flash_attention/wgmma"):
+            fail(f"flash_attention: every full-width tile is on wgmma, launches {route_counts}")
         if any(d.status == "error" for d in rows):
             fail(f"{kernel}: error rows: {[d.reason for d in rows if d.status == 'error']}")
         checked = [d for d in rows if d.fidelity == "dryrun" and d.status == "ok"]
@@ -1845,10 +1853,10 @@ def main() -> None:
     counts, route_counts = ops.launch_counts(), ops.route_launch_counts()
     path_counts["pareto_cell"] = (counts, route_counts)
     off_route = {k: n for k, n in route_counts.items()
-                 if n and k not in ("flash_attention/wgmma", "flash_attention/mma")}
+                 if n and k != "flash_attention/wgmma"}
     if route_counts.get("flash_attention/wgmma", 0) == 0 or off_route:
         fail(f"pareto cell: launches {route_counts} are not all on flash attention's "
-             f"routes, wgmma among them")
+             f"wgmma route")
     if not report.get("front"):
         fail("pareto cell: no front")
     rows = CostDB(pareto_dir / "cost_db.jsonl").all()
@@ -1953,7 +1961,10 @@ def main() -> None:
             qh, kh_, vh, is_causal=causal, enable_gqa=True))
         for dims in tile_grid(shape):
             res = kernel_resources(shape, dims)
-            if not res.feasible or dims["causal"] != causal:
+            if not res.feasible or res.route != "wgmma":
+                fail(f"sweep flash_attention {dims}: feasible {res.feasible} on route "
+                     f"{res.route}, where every full-width point runs on wgmma")
+            if dims["causal"] != causal:
                 continue
             ms = time_ms(lambda: fa.flash_attention_cuda(
                 q, k, v, causal=causal, block_q=dims["block_q"],
@@ -1971,9 +1982,8 @@ def main() -> None:
 
     # flash attention's mma route, which the campaign's f32 cell runs: its
     # own entry at that cell's default tile; then every feasible tile of
-    # the two CI shapes (the f32 one all on mma, the bf16 one on both
-    # routes) beside SDPA's time, the bound and the resource model's
-    # estimate
+    # the two CI shapes (the f32 one all on mma, the bf16 one all on wgmma)
+    # beside SDPA's time, the bound and the resource model's estimate
     n_mma, n_mma_by = launches_of(path_counts, "flash_attention", "mma")
     if not n_mma:
         fail("flash_attention: the main path never launched the mma kernel")

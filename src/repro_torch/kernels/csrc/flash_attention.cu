@@ -5,16 +5,16 @@
 // Replaces the Pallas kernel
 // src/repro/kernels/flash_attention.py::_flash_kernel (pallas_call in
 // flash_attention(), lines 24-103) for the calls that
-// csrc/flash_attention_wgmma.cu is not instantiated for (f32 inputs; bf16 at
-// a head dim other than 64 or 128, a tile other than 64 or 128 rows or a
-// sequence shorter than 64), up to d 128 and where its two K/V stages fit a
-// block; csrc/flash_attention_fma.cu takes the rest (the rule is
+// csrc/flash_attention_wgmma.cu does not take (f32 inputs; bf16 at a head
+// dim other than 64 or 128, a block outside {64, 128, 256, 512} or a
+// sequence shorter than 64), at every tile up to d 128;
+// csrc/flash_attention_fma.cu takes d above 128 (the rule is
 // repro_torch/kernels/flash_attention.py::route). Same function: q
 // [b, sq, h, d], k and v [b, sk, kh, d], GQA (query head `hd` reads KV head
 // `hd / (h / kh)`), q scaled by 1/sqrt(d) in f32, causal keeps
 // q_offset + i >= j, masked scores are -1e30 (not -inf, so a fully masked
 // row averages V), m, l and the accumulator in f32, an l == 0 -> 1 guard,
-// the causal walk stopping after the last K tile the q tile can see, output
+// the causal walk stopping after the last keys the q tile can see, output
 // rounded once to q's type.
 //
 // What bounds it on the H100: operations at realistic widths (4 * d FLOP per
@@ -39,10 +39,15 @@
 // registers a thread; the kernel takes 170-255 at d 64 and up). The head
 // dim is zero-padded inside the kernel to the next of 16, 32, 64, 96 and
 // 128 (DP): the zero columns add nothing to Q.K^T, and the padded output
-// columns are not written. The pass's q rows and the K and V tiles of bk
-// keys come in the input type through 16-byte cp.async (q with the first
-// tile), K and V into a ring of two stages, so the next tile's copy
-// overlaps this tile's products. Each warp reads its 16 rows of q once a
+// columns are not written. The pass's q rows and K and V come in the input
+// type through 16-byte cp.async (q with the first stage), K and V into a
+// ring of two stages of ST keys, so the next stage's copy overlaps this
+// one's products. A stage holds a whole tile of bk keys (ST = bk rounded up
+// to KC) where two such stages and the q rows fit a block; else ST is the
+// largest multiple of KC that fits (64 keys at f32 and DP 128) and a tile
+// comes in ceil(bk / ST) stages, each starting at a multiple of ST within
+// the tile. The sub-tiles, the softmax and every product are the same
+// either way: only the staging differs. Each warp reads its 16 rows of q once a
 // pass, scales them and splits them into registers (A fragments: DP
 // registers for the two parts; for f32, and above DP 64, where the parts
 // would not leave room beside O and the splits of K and V, q is held as one
@@ -63,14 +68,15 @@
 // padded (K and q: f32 rows to 8 words mod 32 for the 8-byte pairs, bf16
 // rows to 4 mod 16; V: 4 words mod 16) so that each fragment read hits 32
 // distinct banks. With causal and q_offset >= 0 a pass stops after the last
-// K tile its rows can see, and a warp skips the sub-tiles past its own last
+// stage its rows can see, and a warp skips the sub-tiles past its own last
 // row: every row has seen key 0, so the skipped keys would add
 // exp(-1e30 - m) = 0 and scale by exp(0) = 1, and the output is bit for bit
 // the same. No intermediate reaches device memory.
 //
-// Shared memory (repro_torch/kernels/flash_attention.py::smem_bytes_mma):
-//   (2 stages * ceil(bk / KC) * KC rows * (K row + V row words)
-//   + 16 * warps * K row words) * 4 bytes.
+// Shared memory (repro_torch/kernels/flash_attention.py::smem_bytes_mma,
+//   with ST from mma_stage_keys):
+//   (2 stages * ST rows * (K row + V row words) + 16 * warps * K row words)
+//   * 4 bytes; at most 232,448 at every tile up to d 128.
 // Threads (flash_attention.py::mma_threads): 32 * min(ceil(bq / 16), 8).
 // Registers per thread (resource_model.py::flash_mma_registers, a model for
 //   feasibility and blocks per SM; the compiler's count is
@@ -122,11 +128,11 @@ __host__ __device__ constexpr int block_warps(int bq) {
   return (bq + 15) / 16 < MAX_WARPS ? (bq + 15) / 16 : MAX_WARPS;
 }
 
-long long smem_bytes(int bq, int bk, int dp, int itemsize) {
-  const int kc = sub_keys(dp);
+// a ring of two stages of st keys and the q rows of a pass
+long long smem_bytes(int bq, int st, int dp, int itemsize) {
   const int kw = itemsize == 4 ? k_words<float>(dp) : k_words<__nv_bfloat16>(dp);
   const int vw = itemsize == 4 ? v_words<float>(dp) : v_words<__nv_bfloat16>(dp);
-  return 4LL * (2 * ((bk + kc - 1) / kc * kc) * (kw + vw) + 16 * block_warps(bq) * kw);
+  return 4LL * (2LL * st * (kw + vw) + 16 * block_warps(bq) * kw);
 }
 
 // Fragments of m16n8k8, lane = 4 * gid + tig: A (16 x 8) a[e] at row
@@ -138,15 +144,16 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
     flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      T* __restrict__ o, int sq, int sk, int h, int kh, int d, int bq, int bk,
-                     int causal, int q_offset, float scale, int vec16) {
+                     int st, int causal, int q_offset, float scale, int vec16) {
   constexpr bool F32 = sizeof(T) == 4;
   constexpr int KC = sub_keys(DP), NT = KC / 8, KS = DP / 8;
   constexpr int KW = k_words<T>(DP), VW = v_words<T>(DP);
   extern __shared__ __align__(16) uint32_t smem[];
-  const int bkr = (bk + KC - 1) / KC * KC;  // rows of a stage
-  uint32_t* ks = smem;                      // [2][bkr][KW]
-  uint32_t* vs = ks + 2 * bkr * KW;         // [2][bkr][VW]
-  uint32_t* qs = vs + 2 * bkr * VW;         // [16 * warps][KW], the pass's q rows
+  // st keys a stage (a multiple of KC): a whole tile, or a part of one
+  const int per_tile = (bk + st - 1) / st;  // stages a K tile takes
+  uint32_t* ks = smem;                      // [2][st][KW]
+  uint32_t* vs = ks + 2 * st * KW;          // [2][st][VW]
+  uint32_t* qs = vs + 2 * st * VW;          // [16 * warps][KW], the pass's q rows
 
   const int tid = threadIdx.x, nthreads = blockDim.x, warps = nthreads / 32;
   const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
@@ -184,50 +191,59 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
       }
     }
   };
-  // K/V tile t into stage t % 2, as one commit group
-  auto load_tile = [&](int t) {
-    const long long src = (long long)t * bk * kvrow;
-    copy_rows(ks + (t & 1) * bkr * KW, KW, kb + src, kvrow, bk);
-    copy_rows(vs + (t & 1) * bkr * VW, VW, vb + src, kvrow, bk);
+  // `rows` keys from key k0 into ring slot `slot`, as one commit group
+  auto load_stage = [&](int slot, int k0, int rows) {
+    const long long src = (long long)k0 * kvrow;
+    copy_rows(ks + slot * st * KW, KW, kb + src, kvrow, rows);
+    copy_rows(vs + slot * st * VW, VW, vb + src, kvrow, rows);
     cp_async_commit();
   };
+  // a stage is the keys k0 .. k0 + min(st, kend - k0) - 1, kend the end of
+  // their K tile; the next stage starts where this one ends
+  auto next_stage = [&](int& k0, int& kend) {
+    k0 += min(st, kend - k0);
+    if (k0 == kend) kend += bk;
+  };
 
-  int n_tiles = sk / bk;  // k_tiles_walked
+  const int n_stages = sk / bk * per_tile;
   const bool skip = causal && q_offset >= 0;
-  if (skip) n_tiles = (int)min((long long)n_tiles, ((long long)q_offset + q0 + bq - 1) / bk + 1);
   const int groups = (bq + 15) / 16;
 
-  // the padding of K and V (columns d..DP, rows bk..bkr) must read as 0,
-  // never as stale bits that could be NaN; the copies write only real
-  // elements, after this
+  // the padding of K and V (columns d..DP; rows past the end of a tile's
+  // last stage, which the sub-tile walk reads and masks) must read as 0
+  // or as a finite value, never as stale bits that could be NaN; the copies
+  // write only real elements, after this, and a later stage leaves finite
+  // values in the rows it does not write
   {
     const int dw = d * (int)sizeof(T) / 4, kpad = KS * 8 * (int)sizeof(T) / 4 - dw;
-    for (int i = tid; i < 2 * bkr * kpad; i += nthreads) {  // columns of every row
+    for (int i = tid; i < 2 * st * kpad; i += nthreads) {  // columns of every row
       const int r = i / kpad, c = dw + i % kpad;
       ks[r * KW + c] = 0u;
       vs[r * VW + c] = 0u;
     }
-    for (int i = tid; i < 2 * (bkr - bk) * KW; i += nthreads)  // rows past the tile
-      ks[(i / ((bkr - bk) * KW)) * bkr * KW + bk * KW + i % ((bkr - bk) * KW)] = 0u;
-    for (int i = tid; i < 2 * (bkr - bk) * VW; i += nthreads)
-      vs[(i / ((bkr - bk) * VW)) * bkr * VW + bk * VW + i % ((bkr - bk) * VW)] = 0u;
+    const int r1 = bk % st ? bk % st : st, tail = st - r1;  // rows past a tile's end
+    for (int i = tid; i < 2 * tail * KW; i += nthreads)
+      ks[(i / (tail * KW)) * st * KW + r1 * KW + i % (tail * KW)] = 0u;
+    for (int i = tid; i < 2 * tail * VW; i += nthreads)
+      vs[(i / (tail * VW)) * st * VW + r1 * VW + i % (tail * VW)] = 0u;
   }
   __syncthreads();
 
   for (int g0 = 0; g0 < groups; g0 += warps) {  // passes of warps * 16 rows
     const int r0 = (g0 + group) * 16;           // this warp's first row of the tile
     const bool active = r0 < bq;
-    int nk = n_tiles;
+    int nk = n_stages;  // stages up to the last one a row of the pass can see
     if (skip) {
-      const int pass_last = min((g0 + warps) * 16, bq) - 1;
-      nk = (int)min((long long)nk, ((long long)q_offset + q0 + pass_last) / bk + 1);
+      const long long last = (long long)q_offset + q0 + min((g0 + warps) * 16, bq) - 1;
+      nk = (int)min((long long)nk, last / bk * per_tile + last % bk / st + 1);
     }
     const long long last_key =
         skip ? (long long)q_offset + q0 + min(r0 + 15, bq - 1) : LLONG_MAX;
 
-    // the pass's q rows come in with the first K/V tile
+    // the pass's q rows come in with the first K/V stage
     copy_rows(qs, KW, qb + g0 * 16 * qrow, qrow, min(warps * 16, bq - g0 * 16));
-    load_tile(0);
+    load_stage(0, 0, min(st, bk));
+    int k0 = 0, kend = bk;  // stage t's first key and the end of its K tile
 
     // q * scale in f32 as A fragments: its parts, or the value (QS)
     constexpr bool QS = q_split_once<T>(DP);
@@ -241,7 +257,9 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
 
     for (int t = 0; t < nk; ++t) {
       if (t + 1 < nk) {
-        load_tile(t + 1);  // into the stage the sync that ended tile t - 1 freed
+        int n0 = k0, nend = kend;
+        next_stage(n0, nend);
+        load_stage((t + 1) & 1, n0, min(st, nend - n0));  // the slot stage t - 1 freed
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
@@ -262,11 +280,12 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
               q_big[kk][e] = __float_as_uint(x);
           }
       }
-      for (int c0 = 0; active && c0 < bk; c0 += KC) {
-        const long long key0 = (long long)t * bk + c0;
+      const int rows = min(st, kend - k0);
+      for (int c0 = 0; active && c0 < rows; c0 += KC) {
+        const long long key0 = (long long)k0 + c0;
         if (key0 > last_key) break;  // every row of the warp masks these keys
-        const uint32_t* kt = ks + (t & 1) * bkr * KW;
-        const uint32_t* vt = vs + (t & 1) * bkr * VW;
+        const uint32_t* kt = ks + (t & 1) * st * KW;
+        const uint32_t* vt = vs + (t & 1) * st * VW;
         // S = (q * scale) K^T over KC keys
         float s[NT][4];
 #pragma unroll
@@ -306,7 +325,7 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
             const int j = 8 * nt + 2 * tig + (e & 1);  // key within the sub-tile
             // the row's last visible key relative to key0 (with causal)
             const long long vis = (long long)q_offset + q0 + r0 + gid + 8 * (e >> 1) - key0;
-            if (c0 + j >= bk)
+            if (c0 + j >= rows)
               s[nt][e] = __int_as_float(0xff800000);  // -inf: past the tile, no key
             else if (causal && vis < j)
               s[nt][e] = NEG_INF;
@@ -356,7 +375,8 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
           }
         }
       }
-      __syncthreads();  // tile t read: its stage is free for t + 2, q's rows for the next pass
+      __syncthreads();  // stage t read: its slot is free for t + 2, q's rows for the next pass
+      next_stage(k0, kend);
     }
 
     if (active) {
@@ -399,8 +419,8 @@ __global__ void __launch_bounds__(32 * MAX_WARPS, 1)
 
 template <typename T, int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int sk, int h,
-           int kh, int d, int bq, int bk, int causal, int q_offset, float scale, int threads,
-           int smem, cudaStream_t s) {
+           int kh, int d, int bq, int bk, int st, int causal, int q_offset, float scale,
+           int threads, int smem, cudaStream_t s) {
   static int smem_allowed = 0;  // the largest size set so far for this kernel
   if (smem > smem_allowed) {
     cudaError_t e = cudaFuncSetAttribute(flash_mma_kernel<T, DP>,
@@ -416,8 +436,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
                      reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   dim3 grid((unsigned)(b * h), (unsigned)(sq / bq));
   flash_mma_kernel<T, DP><<<grid, threads, smem, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, h, kh, d, bq, bk, causal, q_offset,
-      scale, vec16);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, h, kh, d, bq, bk, st, causal,
+      q_offset, scale, vec16);
   return (int)cudaGetLastError();
 }
 
@@ -452,13 +472,13 @@ int dispatch(int dtype, int dp, F f) {
 struct Launch {
   const void *q, *k, *v;
   void* o;
-  int b, sq, sk, h, kh, d, bq, bk, causal, q_offset;
+  int b, sq, sk, h, kh, d, bq, bk, st, causal, q_offset;
   float scale;
   int threads, smem;
   cudaStream_t s;
   template <typename T, int DP>
   int operator()() const {
-    return launch<T, DP>(q, k, v, o, b, sq, sk, h, kh, d, bq, bk, causal, q_offset, scale,
+    return launch<T, DP>(q, k, v, o, b, sq, sk, h, kh, d, bq, bk, st, causal, q_offset, scale,
                          threads, smem, s);
   }
 };
@@ -473,21 +493,23 @@ struct Attr {
 
 }  // namespace
 
-// cfg holds b, sq, sk, h, kh, d, bq, bk, causal, q_offset, dtype, threads
-// and smem: the wrapper builds it once for a call's shapes and options, so a
-// call passes 7 arguments, not 19 (each costs the host a conversion)
+// cfg holds b, sq, sk, h, kh, d, bq, bk, causal, q_offset, dtype, threads,
+// smem and the keys a stage holds (flash_attention.py::mma_stage_keys): the
+// wrapper builds it once for a call's shapes and options, so a call passes
+// 7 arguments, not 20 (each costs the host a conversion)
 extern "C" int flash_attention_mma_launch(const void* q, const void* k, const void* v, void* o,
                                           const int* cfg, float scale, void* stream) {
   const int b = cfg[0], sq = cfg[1], sk = cfg[2], h = cfg[3], kh = cfg[4], d = cfg[5],
             bq = cfg[6], bk = cfg[7], causal = cfg[8], q_offset = cfg[9], dtype = cfg[10],
-            threads = cfg[11], smem = cfg[12];
+            threads = cfg[11], smem = cfg[12], st = cfg[13];
   const int itemsize = dtype == DTYPE_F32 ? 4 : 2, dp = padded_d(d);
   if (b <= 0 || sq <= 0 || sk <= 0 || h <= 0 || kh <= 0 || d <= 0 || dp == 0 || bq <= 0 ||
       bk <= 0 || sq % bq != 0 || sk % bk != 0 || h % kh != 0 || sq / bq > 65535 ||
-      threads != 32 * block_warps(bq) || (long long)smem < smem_bytes(bq, bk, dp, itemsize))
+      st <= 0 || st % sub_keys(dp) != 0 || threads != 32 * block_warps(bq) ||
+      (long long)smem < smem_bytes(bq, st, dp, itemsize))
     return (int)cudaErrorInvalidValue;
   return dispatch(dtype, dp,
-                  Launch{q, k, v, o, b, sq, sk, h, kh, d, bq, bk, causal, q_offset, scale,
+                  Launch{q, k, v, o, b, sq, sk, h, kh, d, bq, bk, st, causal, q_offset, scale,
                          threads, smem, (cudaStream_t)stream});
 }
 

@@ -9,22 +9,25 @@ blocks are ``min(block, seq)`` and must divide the sequence.
 
 ``flash_attention_cuda`` launches one of three hand-written Hopper kernels
 (one CUDA block per (b*h, q tile)), chosen by :func:`route` before the
-launch: bf16 inputs at d = 64 or 128 with block_q and block_k of 64 or 128
-(the tiles it is instantiated for) take ``csrc/flash_attention_wgmma.cu``
-(``wgmma`` products, TMA-fed K/V); every other call up to d = 128 whose
-two K/V stages fit a block (f32; bf16 at another d, another tile or a
-sequence shorter than 64) takes ``csrc/flash_attention.cu`` (``mma.sync``
-TF32 products with each operand split into two TF32 parts, three products
-per product for f32 and two where the operand is bf16, which keeps f32
-accuracy: plain TF32 would not hold f32 to its plain version); the rest (d
-above 128, or large block_k, mostly f32) take ``csrc/flash_attention_fma.cu``
-(f32 FMAs on the CUDA cores, one K/V stage).
+launch: bf16 inputs at d = 64 or 128 with block_q and block_k in
+{64, 128, 256, 512} take ``csrc/flash_attention_wgmma.cu`` (``wgmma``
+products, TMA-fed K/V; a q tile above 128 rows runs in passes of 128, a K
+tile above 128 keys is walked in sub-tiles of 128); every other call up to
+d = 128 (f32; bf16 at another d, another tile or a sequence shorter than
+64) takes ``csrc/flash_attention.cu`` (``mma.sync`` TF32 products with
+each operand split into two TF32 parts, three products per product for f32
+and two where the operand is bf16, which keeps f32 accuracy: plain TF32
+would not hold f32 to its plain version; its K/V ring holds whole tiles
+where two fit a block, else sub-tiles); d above 128 takes
+``csrc/flash_attention_fma.cu`` (f32 FMAs on the CUDA cores, one K/V
+stage), which refuses a tile whose shared memory does not fit.
 A failed build or launch raises; no route stands in for another.
 ``flash_attention_plain`` walks the same ``block_q`` / ``block_k`` tiles
 with the same online softmax in plain torch, including the causal tile
 skip, so the CPU tests exercise the GQA mapping, the causal offsets and the
-``l == 0`` guard. On the wgmma route it rounds P to bf16 before the P.V
-product, as that kernel does (l is summed from the f32 P).
+``l == 0`` guard. On the wgmma route it walks each K tile in that kernel's
+sub-tiles and rounds P to bf16 before the P.V product, as the kernel does
+(l is summed from the f32 P).
 """
 from __future__ import annotations
 
@@ -57,11 +60,14 @@ FMA_THREADS = 256
 
 #: head dims the wgmma kernel is instantiated for
 WGMMA_D = (64, 128)
-#: block_q and block_k it is instantiated for (``FLASH_WGMMA_CASE`` in its
-#: source lists the same product): with block_k 256, S, O and P alone would
-#: take 128 + d/2 + 64 registers a thread, and block_q 256 would leave 544
-#: threads 120 registers each
-WGMMA_BLOCKS = (64, 128)
+#: block_q and block_k it takes: a q tile runs in passes of
+#: ``min(block_q, WGMMA_MAX)`` rows and a K tile in sub-tiles of
+#: ``min(block_k, WGMMA_MAX)`` keys, the two template parameters beside d
+#: (``FLASH_WGMMA_CASE`` in its source lists them); 256-key sub-tiles would
+#: take 128 + d/2 + 64 registers a thread for S, O and P alone, and 256-row
+#: passes would leave 544 threads 120 registers each
+WGMMA_BLOCKS = (64, 128, 256, 512)
+WGMMA_MAX = 128
 
 #: K/V stages in the wgmma kernel's TMA ring
 WGMMA_STAGES = 2
@@ -72,30 +78,37 @@ def route(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """Which kernel runs a call at the tile it runs (``min(block, seq)``),
     decided before the launch: ``"wgmma"`` for bf16 at a head dim in
     ``WGMMA_D`` and ``block_q``, ``block_k`` in ``WGMMA_BLOCKS``; else
-    ``"mma"`` where d is at most 128 and its shared memory fits a block;
-    else ``"fma"``."""
+    ``"mma"`` where d is at most 128; else ``"fma"``."""
     if (dtype == torch.bfloat16 and d in WGMMA_D and block_q in WGMMA_BLOCKS
             and block_k in WGMMA_BLOCKS):
         return "wgmma"
-    itemsize = 4 if dtype == torch.float32 else 2
-    if (mma_head_dim(d)
-            and smem_bytes_mma(block_q, block_k, d, itemsize) <= H100_SXM.smem_per_block):
-        return "mma"
-    return "fma"
+    return "mma" if mma_head_dim(d) else "fma"
+
+
+def wgmma_pass_rows(block_q: int) -> int:
+    """Query rows of one pass of the wgmma kernel (a template parameter)."""
+    return min(block_q, WGMMA_MAX)
+
+
+def wgmma_sub_keys(block_k: int) -> int:
+    """Keys of one K/V sub-tile of the wgmma kernel (a template parameter):
+    its online softmax and its rounding of P run once a sub-tile."""
+    return min(block_k, WGMMA_MAX)
 
 
 def wgmma_threads(block_q: int) -> int:
-    """The wgmma kernel's threads: one consumer warpgroup per 64 query rows
-    and one producer warp."""
-    return 128 * (block_q // 64) + 32
+    """The wgmma kernel's threads: one consumer warpgroup per 64 rows of a
+    pass and one producer warp."""
+    return 128 * (wgmma_pass_rows(block_q) // 64) + 32
 
 
 def smem_bytes_wgmma(block_q: int, block_k: int, d: int) -> int:
     """Dynamic shared memory the wgmma kernel asks for: 1024 bytes of
-    alignment slack, the bf16 q tile, ``WGMMA_STAGES`` K and V tiles and
-    the mbarriers. The launch and the resource model both call this."""
-    return (1024 + 2 * d * (block_q + 2 * WGMMA_STAGES * block_k)
-            + 8 * (1 + 2 * WGMMA_STAGES))
+    alignment slack, a pass's bf16 q rows, ``WGMMA_STAGES`` K and V
+    sub-tiles and the mbarriers (q full and empty, a full and an empty per
+    stage). The launch and the resource model both call this."""
+    qp, ks = wgmma_pass_rows(block_q), wgmma_sub_keys(block_k)
+    return 1024 + 2 * d * (qp + 2 * WGMMA_STAGES * ks) + 8 * (2 + 2 * WGMMA_STAGES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,19 +131,39 @@ def mma_threads(block_q: int) -> int:
     return 32 * min(-(-block_q // 16), MMA_WARPS)
 
 
-@functools.lru_cache(maxsize=None)
-def smem_bytes_mma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
-    """Dynamic shared memory the mma kernel asks for: two stages of a K and
-    a V tile in the input type, ``block_k`` rows rounded up to whole
-    sub-tiles, the q rows of one pass (16 a warp), each row padded for
-    conflict-free fragment reads (K and q: f32 to 8 words mod 32, bf16 to
-    4 mod 16; V: 4 words mod 16). The launch and the resource model both
-    call this."""
-    dp, kc = mma_head_dim(d), mma_sub_keys(d)
+def _mma_row_words(d: int, itemsize: int) -> Tuple[int, int]:
+    """Words of a K (and q) row and of a V row in the mma kernel's shared
+    memory, padded for conflict-free fragment reads (K and q: f32 to 8
+    words mod 32, bf16 to 4 mod 16; V: 4 words mod 16)."""
+    dp = mma_head_dim(d)
     k_words = (_build.row_words(dp, 4, 8, 32) if itemsize == 4
                else _build.row_words(dp, 2, 4, 16))
-    v_words = _build.row_words(dp, itemsize, 4, 16)
-    return 4 * (2 * (-(-block_k // kc) * kc) * (k_words + v_words)
+    return k_words, _build.row_words(dp, itemsize, 4, 16)
+
+
+@functools.lru_cache(maxsize=None)
+def mma_stage_keys(block_q: int, block_k: int, d: int, itemsize: int) -> int:
+    """Keys one stage of the mma kernel's two-stage K/V ring holds: the
+    whole ``block_k`` tile, rounded up to whole sub-tiles, where two such
+    stages and a pass's q rows fit a block; else the largest multiple of
+    the sub-tile that fits, and the kernel brings a tile in that many keys
+    at a time (its result does not depend on it)."""
+    kc = mma_sub_keys(d)
+    k_words, v_words = _mma_row_words(d, itemsize)
+    whole = -(-block_k // kc) * kc
+    room = H100_SXM.smem_per_block - 4 * mma_threads(block_q) // 2 * k_words
+    fit = room // (8 * (k_words + v_words)) // kc * kc
+    return whole if whole <= fit else fit
+
+
+@functools.lru_cache(maxsize=None)
+def smem_bytes_mma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
+    """Dynamic shared memory the mma kernel asks for: two stages of
+    :func:`mma_stage_keys` K and V rows in the input type and the q rows of
+    one pass (16 a warp), each row padded as :func:`_mma_row_words` says.
+    The launch and the resource model both call this."""
+    k_words, v_words = _mma_row_words(d, itemsize)
+    return 4 * (2 * mma_stage_keys(block_q, block_k, d, itemsize) * (k_words + v_words)
                 + mma_threads(block_q) // 2 * k_words)
 
 
@@ -181,6 +214,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 512,
                           block_k: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Flash attention in plain torch over the kernel's tiles."""
     bq, bk = _blocks(q, k, v, block_q, block_k)
+    on_wgmma = route(q.dtype, q.shape[3], bq, bk) == "wgmma"
+    # the wgmma kernel runs its softmax once a sub-tile and takes P in bf16
+    return _flash_walk(q, k, v, causal=causal, bq=bq, bk=bk, q_offset=q_offset,
+                       sub_k=wgmma_sub_keys(bk) if on_wgmma else bk, round_p=on_wgmma)
+
+
+def _flash_walk(q, k, v, *, causal: bool, bq: int, bk: int, q_offset: int, sub_k: int,
+                round_p: bool) -> torch.Tensor:
+    """The tile walk of :func:`flash_attention_plain`: the K tiles each q
+    tile can see, each in steps of ``sub_k`` keys (one online-softmax update
+    a step), P rounded to q's dtype for P.V where ``round_p``."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     g = h // kh
@@ -189,7 +233,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 512,
     qf = (q.float() * scale).view(b, sq, kh, g, d).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)  # [b, kh, 1, sk, d]
     vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
-    round_p = route(q.dtype, d, bq, bk) == "wgmma"  # P.V takes P in bf16 there
     out = torch.empty(b, kh, g, sq, d, dtype=torch.float32, device=q.device)
     for qt in range(sq // bq):
         q_t = qf[..., qt * bq:(qt + 1) * bq, :]
@@ -198,12 +241,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 512,
         l = torch.zeros(b, kh, g, bq, device=q.device)
         acc = torch.zeros(b, kh, g, bq, d, device=q.device)
         n_k = k_tiles_walked(qt, bq, bk, sk, causal=causal, q_offset=q_offset)
-        for t in range(n_k):
-            k_t = kf[..., t * bk:(t + 1) * bk, :]
-            v_t = vf[..., t * bk:(t + 1) * bk, :]
+        for k0 in range(0, n_k * bk, sub_k):
+            k_t = kf[..., k0:k0 + sub_k, :]
+            v_t = vf[..., k0:k0 + sub_k, :]
             s = q_t @ k_t.transpose(-1, -2)
             if causal:
-                k_pos = t * bk + torch.arange(bk, device=q.device)
+                k_pos = k0 + torch.arange(sub_k, device=q.device)
                 s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -236,8 +279,9 @@ def _launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, block_q: int,
     if path == "wgmma":
         args = (*ints, scale, wgmma_threads(bq), smem_bytes_wgmma(bq, bk, d))
     elif path == "mma":
-        cfg = (ctypes.c_int * 13)(*ints, code, mma_threads(bq),
-                                  smem_bytes_mma(bq, bk, d, itemsize))
+        cfg = (ctypes.c_int * 14)(*ints, code, mma_threads(bq),
+                                  smem_bytes_mma(bq, bk, d, itemsize),
+                                  mma_stage_keys(bq, bk, d, itemsize))
         args = (ctypes.addressof(cfg), scale)
     else:
         args = (*ints, scale, code, FMA_THREADS, smem_bytes_fma(bq, bk, d, itemsize))
@@ -269,8 +313,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, block_q: int = 512,
 
 def wgmma_attributes(d: int, block_q: int, block_k: int) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) the compiler gave the
-    wgmma kernel at this tile; builds the library. Raises for a tile that
-    is not instantiated."""
+    wgmma kernel's instantiation that a tile of ``block_q`` x ``block_k``
+    runs on (passes of :func:`wgmma_pass_rows`, sub-tiles of
+    :func:`wgmma_sub_keys`); builds the library. Raises for a tile the
+    route does not take."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     err = _build.library().flash_attention_wgmma_attributes(
         d, block_q, block_k, ctypes.byref(regs), ctypes.byref(local))

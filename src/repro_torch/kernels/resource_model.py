@@ -8,10 +8,9 @@ For each candidate tile of a port kernel it reports:
   launch calls), and ``vmem_util``, its share of the 232,448 B a block may
   have (the BRAM-utilization analog; the names stay because
   ``cost_db.derive_objectives`` reads ``vmem_util``);
-* ``feasible``: that figure fits one block, the thread count is legal,
-  the modelled registers fit (flash attention's mma route) and the kernel
-  has the tile (the wgmma route takes only the tiles it is instantiated
-  for), so the DSE never proposes a tile that cannot launch;
+* ``feasible``: that figure fits one block, the thread count is legal and
+  the modelled registers fit (flash attention's mma route), so the DSE
+  never proposes a tile that cannot launch;
 * ``route``: which kernel (or kernel path) runs the tile, by the same rule
   the wrapper applies before its launch, and ``regs_per_thread``, the
   modelled registers, which only set the blocks resident per SM (0 where
@@ -122,10 +121,11 @@ def _round8(n: float) -> int:
 
 def flash_wgmma_registers(block_k: int, d: int) -> int:
     """Registers per thread the model gives the wgmma kernel, for its
-    blocks per SM: S (bk/2 f32), O (d/2 f32), P in bf16 (bk/4) and 48 for
-    addresses, m, l and the loop, rounded up to 8 (block_q sets the thread
-    count, not this)."""
-    return _round8(block_k / 2 + d / 2 + block_k / 4 + 48)
+    blocks per SM: S (half a sub-tile's keys, f32), O (d/2 f32), P in bf16
+    (a quarter of the sub-tile's keys) and 48 for addresses, m, l and the
+    loops, rounded up to 8 (block_q sets the thread count, not this)."""
+    ks = _fa.wgmma_sub_keys(block_k)
+    return _round8(ks / 2 + d / 2 + ks / 4 + 48)
 
 
 def flash_mma_registers(d: int, itemsize: int) -> int:
@@ -181,28 +181,32 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
                               dev: DeviceModel = H100_SXM, *,
                               causal: bool = True,
                               q_offset: int = 0) -> KernelResources:
-    n_qt = max(sq // max(block_q, 1), 1)
-    n_blocks = b * h * n_qt
-    walked = sum(_fa.k_tiles_walked(qt, block_q, block_k, sk, causal=causal,
-                                    q_offset=q_offset) for qt in range(n_qt))
+    bq, bk = min(block_q, sq), min(block_k, sk)  # the tile the kernel runs
+    route = _fa.route(_DTYPE_OF_ITEMSIZE[itemsize], d, bq, bk)
+    n_blocks = b * h * max(sq // max(block_q, 1), 1)
+    # the tiles the CTAs walk: their q tiles and K tiles, or on the wgmma
+    # route the passes of every q tile and their K/V sub-tiles, each (with
+    # causal) stopping after the last that its rows see
+    wq, wk = ((_fa.wgmma_pass_rows(bq), _fa.wgmma_sub_keys(bk)) if route == "wgmma"
+              else (block_q, block_k))
+    walked = sum(_fa.k_tiles_walked(qt, wq, wk, sk, causal=causal, q_offset=q_offset)
+                 for qt in range(max(sq // max(wq, 1), 1)))
     # every walked tile costs its full QK^T and PV: the kernel computes
     # masked entries too
-    flops = b * h * walked * 4 * block_q * block_k * d
-    nbytes = b * h * (2 * sq * d + walked * 2 * block_k * d) * itemsize
-    route = _fa.route(_DTYPE_OF_ITEMSIZE[itemsize], d, min(block_q, sq),
-                      min(block_k, sk))
+    flops = b * h * walked * 4 * wq * wk * d
+    nbytes = b * h * (2 * sq * d + walked * 2 * wk * d) * itemsize
     if route == "wgmma":
-        # the route takes only instantiated tiles; registers set occupancy
-        launch = dict(smem=_fa.smem_bytes_wgmma(block_q, block_k, d),
-                      threads=_fa.wgmma_threads(block_q),
-                      regs=flash_wgmma_registers(block_k, d),
+        # registers set occupancy
+        launch = dict(smem=_fa.smem_bytes_wgmma(bq, bk, d),
+                      threads=_fa.wgmma_threads(bq),
+                      regs=flash_wgmma_registers(bk, d),
                       peak=dev.peak_flops_bf16)
         fits = True
     elif route == "mma":
         # three TF32 products per product for f32, two for bf16 (K and V
         # exact in TF32)
-        threads, regs = _fa.mma_threads(min(block_q, sq)), flash_mma_registers(d, itemsize)
-        launch = dict(smem=_fa.smem_bytes_mma(min(block_q, sq), min(block_k, sk), d, itemsize),
+        threads, regs = _fa.mma_threads(bq), flash_mma_registers(d, itemsize)
+        launch = dict(smem=_fa.smem_bytes_mma(bq, bk, d, itemsize),
                       threads=threads,
                       regs=regs, peak=dev.peak_flops_tf32 / (3 if itemsize == 4 else 2))
         fits = regs <= dev.max_regs_per_thread and regs * threads <= dev.regs_per_sm

@@ -6,10 +6,11 @@ its wgmma route at every instantiated (chunk, N) over an odd number of
 chunks, the SSD scan on its mma route (f32 and bf16, chunks 32-256, odd dh
 and N, with and without an initial state) and on the FMA kernels at the
 sizes the mma kernel does not take, bf16 flash attention
-on both of its routes and f32 flash attention on the mma route (the FMA
-kernel where the mma kernel's two K/V stages do not fit, and above d = 128)
-with ``sq != sk``, ``q_offset``, odd K-tile walks and short query blocks at
-d = 64, 96 and 128, every
+on both of its routes and f32 flash attention on the mma route (its ring
+holding part of a tile where two whole ones do not fit; the FMA kernel
+above d = 128) with ``sq != sk``, ``q_offset``, odd K-tile walks and short
+query blocks at d = 64, 96 and 128, every full-width flash tile above 128
+rows or keys on ``wgmma`` and the shipped blocks through ``ops``, every
 rmsnorm path at an odd row count and every ``block_rows``, the oracle
 gate, launch counting, refused launches, one DSE cell with measured
 rows on cuda, and a two-cell kernel campaign that resumes with no
@@ -231,12 +232,12 @@ def test_flash_bf16_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card
                 ).to(torch.bfloat16)
 
     q, k, v = draw(sq, 4), draw(sk, 2), draw(sk, 2)
-    for bq, bk in [(64, 64), (64, 128), (128, 64), (128, 128)]:
+    for bq, bk in [(64, 64), (64, 128), (128, 64), (128, 128), (256, 256), (128, 512)]:
         bq_, bk_ = min(bq, sq), min(bk, sk)
         if sq % bq_ or sk % bk_ or (bq > sq and bq != 64):
             continue
         key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
-        assert key.endswith("wgmma") == (d != 96 and sq >= 64)
+        assert key.endswith("wgmma") == (d != 96 and sq >= 64 and bk_ in fa.WGMMA_BLOCKS)
         kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
         before = _build.LAUNCHES[key]
         got = fa.flash_attention_cuda(q, k, v, **kw)
@@ -253,21 +254,22 @@ def test_flash_bf16_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card
 def test_flash_f32_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card):
     # f32 on split TF32 (three products a product) held to the plain
     # version at the unchanged PLAIN_REL; 256- and 512-row tiles run in
-    # passes of 128 rows; a tile whose two K/V stages do not fit goes to
-    # the FMA kernel where its one stage does
+    # passes of 128 rows; where two K/V stages of a whole tile do not fit,
+    # the ring holds part of one (64 keys at d=128)
     gen = torch.Generator(device=card).manual_seed(sq + sk + d)
 
     def draw(s, heads):
         return 0.3 * torch.randn(2, s, heads, d, generator=gen, device=card)
 
     q, k, v = draw(sq, 4), draw(sk, 2), draw(sk, 2)
-    for bq, bk in [(64, 64), (64, 128), (128, 64), (128, 128), (256, 64), (512, 128)]:
+    for bq, bk in [(64, 64), (64, 128), (128, 64), (128, 128), (256, 64), (512, 128),
+                   (256, 256), (64, 512)]:
         bq_, bk_ = min(bq, sq), min(bk, sk)
-        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or not \
-                flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_, 4).feasible:
+        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64):
             continue
+        assert flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_, 4).feasible
         key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
-        assert key.endswith("mma") == (fa.smem_bytes_mma(bq_, bk_, d, 4) <= 232_448)
+        assert key == "flash_attention/mma" and fa.smem_bytes_mma(bq_, bk_, d, 4) <= 232_448
         kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
         before = _build.LAUNCHES[key]
         got = fa.flash_attention_cuda(q, k, v, **kw)
@@ -282,7 +284,7 @@ def test_flash_f32_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card)
 @pytest.mark.parametrize("dtype,d,bq,bk", [
     (torch.bfloat16, 192, 64, 64),   # d above 128
     (torch.float32, 192, 64, 64),
-    (torch.float32, 64, 64, 256),    # two f32 K/V stages of 256 rows do not fit
+    (torch.float32, 160, 64, 64),
 ])
 def test_flash_fma_takes_what_the_mma_kernel_cannot(dtype, d, bq, bk, card):
     gen = torch.Generator(device=card).manual_seed(d + bk)
@@ -300,20 +302,76 @@ def test_flash_fma_takes_what_the_mma_kernel_cannot(dtype, d, bq, bk, card):
 
 @pytest.mark.cuda
 def test_flash_wgmma_refuses_tiles_it_does_not_instantiate(card):
-    # the wrapper sends (256, 64) to the mma kernel; the wgmma launcher
-    # itself refuses it
-    q = (0.3 * torch.randn(1, 256, 2, 64, device=card)).to(torch.bfloat16)
+    # the wrapper sends bf16 at d=96 to the mma kernel; the wgmma launcher
+    # itself refuses it, and a 192-row block (not a whole number of passes)
+    q = (0.3 * torch.randn(1, 384, 2, 96, device=card)).to(torch.bfloat16)
     before = _build.LAUNCHES["flash_attention/mma"]
-    got = fa.flash_attention_cuda(q, q, q, block_q=256, block_k=64)
+    got = fa.flash_attention_cuda(q, q, q, block_q=128, block_k=128)
     assert _build.LAUNCHES["flash_attention/mma"] == before + 1
     assert conformance.agree_with_plain(
-        got, fa.flash_attention_plain(q, q, q, block_q=256, block_k=64))["passed"]
+        got, fa.flash_attention_plain(q, q, q, block_q=128, block_k=128))["passed"]
     o = torch.empty_like(q)
     err = _build.library().flash_attention_wgmma_launch(
-        q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 256, 256, 2, 2,
-        64, 256, 64, 1, 0, 0.125, fa.wgmma_threads(256),
-        fa.smem_bytes_wgmma(256, 64, 64), _build.stream_ptr(card))
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 384, 384, 2, 2,
+        96, 128, 128, 1, 0, 96 ** -0.5, fa.wgmma_threads(128),
+        fa.smem_bytes_wgmma(128, 128, 96), _build.stream_ptr(card))
     assert err != 0
+    q64 = q[..., :64].contiguous()
+    err = _build.library().flash_attention_wgmma_launch(
+        q64.data_ptr(), q64.data_ptr(), q64.data_ptr(), o.data_ptr(), 1, 384, 384, 2, 2,
+        64, 192, 128, 1, 0, 0.125, fa.wgmma_threads(192),
+        fa.smem_bytes_wgmma(192, 128, 64), _build.stream_ptr(card))
+    assert err != 0
+
+
+#: the full-width flash shape, llama3-8b's prefill of 4096 tokens
+FULL_WIDTH_FLASH = KernelShape("attn_llama3_8b_s4096_bf16", "flash_attention",
+                               {"b": 1, "sq": 4096, "sk": 4096, "h": 32, "kh": 8, "d": 128},
+                               "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_full_width_large_tiles_run_on_wgmma(causal, card):
+    # every full-width tile with block_q or block_k above 128: passes of
+    # 128 rows, sub-tiles of 128 keys, held to the plain version (which
+    # walks the same sub-tiles) within PLAIN_REL
+    q, k, v = conformance.make_inputs(FULL_WIDTH_FLASH, device=card)
+    n = 0
+    for dims in tile_grid(FULL_WIDTH_FLASH):
+        bq, bk = dims["block_q"], dims["block_k"]
+        if dims["causal"] != causal or max(bq, bk) <= 128:
+            continue
+        assert fa.route(q.dtype, 128, bq, bk) == "wgmma"
+        before = _build.LAUNCHES["flash_attention/wgmma"]
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attention/wgmma"] == before + 1
+        agree = conformance.agree_with_plain(
+            got, fa.flash_attention_plain(q, k, v, causal=causal, block_q=bq, block_k=bk))
+        assert agree["passed"], (bq, bk, agree)
+        n += 1
+    assert n == 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,route", [
+    (torch.bfloat16, (1, 4096, 32, 8, 128), "wgmma"),  # llama3-8b's widths
+    (torch.float32, (1, 512, 4, 2, 128), "mma"),       # a ring of 64-key stages
+])
+def test_flash_shipped_blocks_run_at_full_width(dtype, shape, route, card):
+    # ops.flash_attention with no block arguments: the shipped 512 x 512
+    b, s, h, kh, d = shape
+    gen = torch.Generator(device=card).manual_seed(s + d)
+    q, k, v = ((0.3 * torch.randn(b, s, hh, d, generator=gen, device=card)).to(dtype)
+               for hh in (h, kh, kh))
+    before = _build.LAUNCHES[f"flash_attention/{route}"]
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[f"flash_attention/{route}"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and torch.isfinite(got).all()
+    agree = conformance.agree_with_plain(got, fa.flash_attention_plain(q, k, v))
+    assert agree["passed"], agree
 
 
 @pytest.mark.cuda

@@ -14,18 +14,21 @@ import torch
 from torch_parity import draw, grid_cases, max_err, tf32, tf32_product, tf32_truncate
 
 from repro.kernels import ops as jops
-from repro_torch.core.design_space import KernelPoint, KernelTemplate
+from repro_torch.core.design_space import (KernelPoint, KernelTemplate,
+                                           baseline_kernel_point)
 from repro_torch.core.kernel_space import (KERNEL_SHAPE_BY_NAME, KernelShape,
                                            kernel_resources, tile_grid)
 from repro_torch.kernels import ops
 from repro_torch.kernels.conformance import PLAIN_REL, agree_with_plain, tolerance
 from repro_torch.kernels.flash_attention import (MMA_D, NEG_INF, SOURCES,
-                                                 WGMMA_BLOCKS, WGMMA_D,
+                                                 WGMMA_BLOCKS, WGMMA_D, _flash_walk,
                                                  flash_attention_plain,
                                                  k_tiles_walked, mma_head_dim,
-                                                 mma_sub_keys, mma_threads, route,
-                                                 smem_bytes_fma, smem_bytes_mma,
-                                                 smem_bytes_wgmma)
+                                                 mma_stage_keys, mma_sub_keys,
+                                                 mma_threads, route, smem_bytes_fma,
+                                                 smem_bytes_mma, smem_bytes_wgmma,
+                                                 wgmma_pass_rows, wgmma_sub_keys,
+                                                 wgmma_threads)
 
 SHAPES = [KERNEL_SHAPE_BY_NAME["attn_s128_f32"],
           KERNEL_SHAPE_BY_NAME["attn_s256_gqa_bf16"]]
@@ -84,39 +87,56 @@ def test_causal_skip_counts_only_visible_tiles():
 
 
 def test_flash_wgmma_smem_formula():
-    # the bf16 q tile, two K and two V stages, five mbarriers, 1024 B slack:
-    # (64, 64) at d=128 fits two blocks on one SM, (128, 128) one
-    assert smem_bytes_wgmma(64, 64, 128) == 1024 + 2 * 128 * (64 + 4 * 64) + 40 == 82_984
-    assert 2 * (82_984 + 1024) <= 233_472
-    assert smem_bytes_wgmma(128, 128, 128) == 164_904 <= 232_448
+    # a pass's bf16 q rows, two K and two V sub-tiles, six mbarriers (q
+    # full and empty, a full and an empty per stage), 1024 B slack: (64, 64)
+    # at d=128 fits two blocks on one SM, (128, 128) one, and every larger
+    # tile asks for what (128, 128) does (passes of 128 rows, sub-tiles of
+    # 128 keys)
+    assert smem_bytes_wgmma(64, 64, 128) == 1024 + 2 * 128 * (64 + 4 * 64) + 48 == 82_992
+    assert 2 * (82_992 + 1024) <= 233_472
+    assert smem_bytes_wgmma(128, 128, 128) == 164_912 <= 232_448
+    for bq in (128, 256, 512):
+        for bk in (128, 256, 512):
+            assert smem_bytes_wgmma(bq, bk, 128) == 164_912
+    assert smem_bytes_wgmma(512, 64, 64) == smem_bytes_wgmma(128, 64, 64)
+    assert [wgmma_threads(bq) for bq in WGMMA_BLOCKS] == [160, 288, 288, 288]
 
 
 def test_route_is_decided_by_dtype_head_dim_and_tile():
     bf16 = torch.bfloat16
+    assert WGMMA_BLOCKS == (64, 128, 256, 512)
     for bq in WGMMA_BLOCKS:
         for bk in WGMMA_BLOCKS:
             assert route(bf16, 128, bq, bk) == route(bf16, 64, bq, bk) == "wgmma"
     assert route(bf16, 96, 64, 64) == "mma"  # no wgmma instantiation at d=96
-    assert route(bf16, 64, 64, 256) == route(bf16, 64, 256, 64) == "mma"
+    assert route(bf16, 64, 64, 320) == route(bf16, 64, 192, 64) == "mma"  # other tiles
     assert route(bf16, 128, 32, 64) == route(bf16, 128, 1, 64) == "mma"  # short q
+    assert route(bf16, 128, 64, 1024) == "mma"
     # f32 goes to mma.sync with each operand split into two TF32 parts
     # (three products a product): one TF32 product would break PLAIN_REL
-    # (test_one_tf32_product_would_not_hold_f32_to_its_plain_version)
-    assert route(torch.float32, 128, 64, 64) == "mma"
-    # what the mma kernel cannot take goes to the FMA kernel: d above 128,
-    # or two K/V stages past a block's shared memory where one still fits
+    # (test_one_tf32_product_would_not_hold_f32_to_its_plain_version),
+    # at every tile: its K/V ring holds sub-tiles where two whole tiles do
+    # not fit a block
+    for bq in WGMMA_BLOCKS:
+        for bk in WGMMA_BLOCKS:
+            assert route(torch.float32, 128, bq, bk) == route(torch.float32, 16, bq, bk) == "mma"
+    assert route(torch.float32, 64, 64, 256) == route(bf16, 96, 512, 512) == "mma"
+    # only d above 128 goes to the FMA kernel
     assert route(bf16, 160, 64, 64) == route(torch.float32, 256, 1, 1) == "fma"
-    assert smem_bytes_mma(64, 256, 64, 4) > 232_448 >= smem_bytes_fma(64, 256, 64, 4)
-    assert route(torch.float32, 64, 64, 256) == "fma"
-    assert route(torch.float32, 64, 64, 128) == route(bf16, 64, 64, 256) == "mma"
+    assert route(bf16, 129, 512, 512) == route(torch.float32, 192, 64, 64) == "fma"
 
 
 def test_wgmma_dispatch_instantiates_exactly_the_routed_tiles():
+    # eight instantiations: d, the pass and the sub-tile; every routed tile
+    # runs on the one its pass and sub-tile name, and each divides its block
     src = (Path(__file__).resolve().parents[1] / SOURCES["wgmma"]).read_text()
     cases = {tuple(map(int, m)) for m in
              re.findall(r"^\s*FLASH_WGMMA_CASE\((\d+), (\d+), (\d+)\)", src, re.M)}
-    assert cases == {(d, bq, bk) for d in WGMMA_D for bq in WGMMA_BLOCKS
-                     for bk in WGMMA_BLOCKS}
+    routed = {(d, wgmma_pass_rows(bq), wgmma_sub_keys(bk)) for d in WGMMA_D
+              for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS}
+    assert cases == routed and len(cases) == 8
+    assert all(bq % wgmma_pass_rows(bq) == 0 and bk % wgmma_sub_keys(bk) == 0
+               for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -138,59 +158,136 @@ def test_bf16_p_moves_the_plain_version_by_at_most_one_bf16_unit(causal):
     assert not torch.equal(p16, p32)  # the rounding of P does show
 
 
-#: the mma route's feasible full-width tiles: its shared memory holds two K
-#: and V stages of block_k rows in bf16, so every block_k up to 128 at
-#: d=128 and up to 256 at d=64 fits, at any block_q (above 128 rows in
-#: passes of 128). Every tile the FMA kernel took here is among them (none
-#: at d=128; (64, 256) and (256, 64) at d=64).
-MMA_FULL_WIDTH = {
-    128: {(256, 64), (256, 128), (512, 64), (512, 128)},
-    64: {(64, 256), (128, 256), (256, 64), (256, 128), (256, 256), (512, 64),
-         (512, 128), (512, 256)},
-}
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block_q,block_k", [(128, 256), (512, 512), (64, 512)])
+def test_flash_plain_sub_tiled_walk_matches_pallas(block_q, block_k, causal):
+    # on the wgmma route a K tile above 128 keys is walked in sub-tiles of
+    # 128 (one softmax update and one rounding of P a sub-tile), as the
+    # kernel walks it; the reference takes each tile whole
+    rng = np.random.default_rng(block_q + block_k)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, 1, 512, 512, 4, 2, 64, "bfloat16")
+    assert route(qt.dtype, 64, block_q, block_k) == "wgmma"
+    kw = dict(causal=causal, block_q=block_q, block_k=block_k, q_offset=64)
+    want = jops.flash_attention(qj, kj, vj, interpret=True, **kw)
+    got = flash_attention_plain(qt, kt, vt, **kw)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert max_err(got, want) <= tolerance("flash_attention", "bfloat16")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("block_k", [256, 512])
+def test_sub_tiles_move_the_plain_version_by_at_most_one_bf16_unit(block_k, causal):
+    # the kernel's walk (sub-tiles of 128 keys) against the same tiles
+    # walked whole, P rounded to bf16 in both, outputs in bf16: each
+    # element moves by at most one bf16 unit in the last place of its row's
+    # largest value
+    rng = np.random.default_rng(block_k + causal)
+    (_, qt), (_, kt), (_, vt) = _qkv(rng, 1, 512, 512, 4, 2, 64, "bfloat16")
+    kw = dict(causal=causal, block_q=128, block_k=block_k)
+    sub = flash_attention_plain(qt, kt, vt, **kw).float()
+    whole = _flash_walk(qt, kt, vt, causal=causal, bq=128, bk=block_k, q_offset=0,
+                        sub_k=block_k, round_p=True).float()
+    row_max = torch.maximum(sub.abs(), whole.abs()).amax(dim=-1, keepdim=True)
+    unit = torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+    assert ((sub - whole).abs() <= unit).all()
+    assert not torch.equal(sub, whole)  # the sub-tiles do show
+    # at 128 keys and below the walk is the whole tile's, bit for bit
+    kw128 = dict(causal=causal, block_q=128, block_k=128)
+    assert torch.equal(flash_attention_plain(qt, kt, vt, **kw128),
+                       _flash_walk(qt, kt, vt, causal=causal, bq=128, bk=128, q_offset=0,
+                                   sub_k=128, round_p=True))
 
 
 @pytest.mark.parametrize("d,fma_feasible", [
-    (128, set()),  # larger block_k go to the FMA kernel, whose f32 tiles
-    (64, set()),   # do not fit at these widths either
+    (128, set()),  # every tile goes to the wgmma kernel, none to the
+    (64, set()),   # mma or FMA kernels
 ])
 def test_full_width_tiles_feasible_on_each_route(d, fma_feasible):
     shape = KernelShape("attn", "flash_attention",
                         {"b": 1, "sq": 4096, "sk": 4096, "h": 32, "kh": 8, "d": d},
                         "bfloat16")
-    wgmma = {(bq, bk) for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS}
+    every = {(bq, bk) for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS}
     feasible = {"wgmma": set(), "mma": set(), "fma": set()}
     for dims in tile_grid(shape):
         res = kernel_resources(shape, dims)
         bq, bk = dims["block_q"], dims["block_k"]
-        # the wgmma route takes exactly the tiles it is instantiated for,
-        # and each fits; every other tile goes to the mma kernel where its
-        # K/V stages fit one block's shared memory (its modelled registers
-        # fit 256 threads at every d up to 128), else to the FMA kernel
-        mma_smem = smem_bytes_mma(bq, bk, d, 2)
-        assert res.route == ("wgmma" if (bq, bk) in wgmma
-                             else "mma" if mma_smem <= 232_448 else "fma")
-        if res.route == "wgmma":
-            assert res.threads == 128 * bq // 64 + 32 and res.regs_per_thread > 0
-            assert res.vmem_bytes == smem_bytes_wgmma(bq, bk, d)
-        elif res.route == "mma":
-            assert res.threads == mma_threads(bq) == 32 * min(bq // 16, 8)
-            assert res.regs_per_thread * res.threads <= 65_536
-            assert res.vmem_bytes == mma_smem
-        else:
-            assert res.vmem_bytes == smem_bytes_fma(bq, bk, d, 2)
-        assert res.feasible == (res.vmem_bytes <= 232_448)
-        if res.feasible:
-            feasible[res.route].add((bq, bk))
-    assert feasible == {"wgmma": wgmma, "mma": MMA_FULL_WIDTH[d], "fma": fma_feasible}
+        # the wgmma route takes every tile of the pools: passes of
+        # min(bq, 128) rows, sub-tiles of min(bk, 128) keys, so its threads,
+        # shared memory and modelled registers are those of that pass and
+        # sub-tile
+        assert res.route == "wgmma"
+        qp, ks = min(bq, 128), min(bk, 128)
+        assert res.threads == 128 * qp // 64 + 32 and res.regs_per_thread > 0
+        assert res.vmem_bytes == smem_bytes_wgmma(qp, ks, d) == smem_bytes_wgmma(bq, bk, d)
+        assert res.feasible == (res.vmem_bytes <= 232_448) is True
+        feasible[res.route].add((bq, bk))
+    assert feasible == {"wgmma": every, "mma": set(), "fma": fma_feasible}
     ok, why = KernelTemplate(shape).validate(
         KernelPoint(dims={"block_q": 256, "block_k": 64, "causal": True}))
     assert ok and why == ""
     big = {"block_q": 64, "block_k": 512, "causal": True}
     ok, why = KernelTemplate(shape).validate(KernelPoint(dims=big))
-    assert not ok
-    assert why == (f"shared memory {smem_bytes_fma(64, 512, d, 2)} B per block "
-                   "exceeds 232448 B limit")
+    assert ok and why == ""
+
+
+def test_every_flash_tile_point_is_feasible_and_the_shipped_tile_stays():
+    # every point of every flash shape's tile grid launches, so the DSE's
+    # expert initial design at full width is the shipped (512, 512), as in
+    # the reference
+    flash = [s for s in KERNEL_SHAPE_BY_NAME.values() if s.kernel == "flash_attention"]
+    assert len(flash) == 3
+    for shape in flash:
+        for dims in tile_grid(shape):
+            res = kernel_resources(shape, dims)
+            assert res.feasible, (shape.name, dims, res.route, res.vmem_bytes)
+    full = KERNEL_SHAPE_BY_NAME["attn_llama3_8b_s4096_bf16"]
+    assert len(tile_grid(full)) == 32
+    assert baseline_kernel_point(full, KernelTemplate(full)).dims == \
+        {"block_q": 512, "block_k": 512, "causal": True}
+
+
+def test_wgmma_model_counts_the_passes_and_sub_tiles_walked():
+    # the work at (512, 512) is the work at (128, 128): every pass of 128
+    # rows walks the sub-tiles of 128 keys up to its last visible one
+    full = KERNEL_SHAPE_BY_NAME["attn_llama3_8b_s4096_bf16"]
+    for causal in (True, False):
+        small = kernel_resources(full, {"block_q": 128, "block_k": 128, "causal": causal})
+        for bq, bk in ((256, 256), (512, 512), (128, 512), (512, 128)):
+            big = kernel_resources(full, {"block_q": bq, "block_k": bk, "causal": causal})
+            assert big.route == "wgmma" and big.blocks_per_sm == small.blocks_per_sm == 1
+            # per block: the same total work over sq / bq q tiles
+            assert big.est_cycles_per_block == pytest.approx(
+                small.est_cycles_per_block * bq / 128)
+    # 528 sub-tiles a head with causal, 1024 without (32 passes x 32)
+    walked = sum(k_tiles_walked(g, 128, 128, 4096, causal=True, q_offset=0)
+                 for g in range(32))
+    assert walked == 528
+
+
+def test_fma_refuses_exactly_the_wide_heads_whose_tile_does_not_fit():
+    # above d = 128 the FMA kernel takes the call, and refuses a tile whose
+    # f32 accumulator, q and score tiles and one K/V stage pass a block; no
+    # configuration in the repo has heads wider than 128
+    refused, taken = set(), set()
+    for dtype in ("float32", "bfloat16"):
+        for d in (160, 192, 256):
+            for bq in (64, 128, 256, 512):
+                for bk in (64, 128, 256, 512):
+                    shape = KernelShape("attn_wide", "flash_attention",
+                                        {"b": 1, "sq": 512, "sk": 512, "h": 2, "kh": 1,
+                                         "d": d}, dtype)
+                    res = kernel_resources(shape, {"block_q": bq, "block_k": bk,
+                                                   "causal": True})
+                    assert res.route == "fma"
+                    itemsize = 4 if dtype == "float32" else 2
+                    assert res.feasible == (smem_bytes_fma(bq, bk, d, itemsize) <= 232_448)
+                    (taken if res.feasible else refused).add((dtype, d, bq, bk))
+    # of the 96 calls, these 7 launch and the other 89 are refused
+    assert taken == {("float32", 160, 64, 64), ("float32", 192, 64, 64),
+                     ("bfloat16", 160, 64, 64), ("bfloat16", 160, 64, 128),
+                     ("bfloat16", 192, 64, 64), ("bfloat16", 192, 64, 128),
+                     ("bfloat16", 256, 64, 64)}
+    assert len(refused) == 89 and not refused & taken
 
 
 def test_every_tile_the_fma_kernel_took_still_launches():
@@ -237,7 +334,8 @@ def test_mma_shared_memory_threads_and_head_dims():
     assert smem_bytes_mma(64, 64, 64, 4) == (2 * 64 * (72 + 68) + 64 * 72) * 4 == 90_112
     assert smem_bytes_mma(128, 128, 64, 4) == (2 * 128 * (72 + 68) + 128 * 72) * 4
     assert smem_bytes_mma(64, 64, 16, 4) == (2 * 64 * (40 + 20) + 64 * 40) * 4
-    assert smem_bytes_mma(64, 128, 128, 4) == (2 * 128 * (136 + 132) + 64 * 136) * 4
+    # two f32 stages of 128 keys at d=128 do not fit a block: 64 keys a stage
+    assert smem_bytes_mma(64, 128, 128, 4) == (2 * 64 * (136 + 132) + 64 * 136) * 4
     assert smem_bytes_mma(64, 64, 64, 2) == (2 * 64 * (36 + 36) + 64 * 36) * 4
     # a pass holds at most 128 q rows
     assert smem_bytes_mma(512, 64, 64, 2) == smem_bytes_mma(128, 64, 64, 2)
@@ -259,6 +357,40 @@ def test_mma_shared_memory_threads_and_head_dims():
                       {"b": 1, "sq": 64, "sk": 64, "h": 1, "kh": 1, "d": 160}, "float32")
     res = kernel_resources(f32, {"block_q": 64, "block_k": 64, "causal": True})
     assert res.route == "fma" and res.feasible
+
+
+def _whole_tile_smem_mma(bq, bk, d, itemsize):
+    """The mma kernel's shared memory with two whole block_k stages: its
+    ring before stages could hold part of a tile."""
+    dp, kc = mma_head_dim(d), mma_sub_keys(d)
+    kw = (dp + (8 - dp) % 32) if itemsize == 4 else (dp // 2 + (4 - dp // 2) % 16)
+    vw = dp * itemsize // 4 + (4 - dp * itemsize // 4) % 16
+    return 4 * (2 * (-(-bk // kc) * kc) * (kw + vw) + mma_threads(bq) // 2 * kw)
+
+
+def test_mma_ring_fits_a_block_at_every_tile_and_keeps_whole_tiles_where_they_fit():
+    blocks = (1, 16, 32, 64, 96, 128, 192, 256, 320, 384, 512)
+    n_whole = n_part = 0
+    for itemsize in (4, 2):
+        for d in range(1, 129):
+            kc = mma_sub_keys(d)
+            for bq in blocks:
+                for bk in blocks:
+                    smem = smem_bytes_mma(bq, bk, d, itemsize)
+                    st = mma_stage_keys(bq, bk, d, itemsize)
+                    whole = _whole_tile_smem_mma(bq, bk, d, itemsize)
+                    assert smem <= 232_448 and st % kc == 0 and st >= kc
+                    if whole <= 232_448:  # two whole stages fit: as before
+                        assert smem == whole and st == -(-bk // kc) * kc
+                        n_whole += 1
+                    else:  # the largest multiple of the sub-tile that fits
+                        assert st < bk
+                        assert _whole_tile_smem_mma(bq, st + kc, d, itemsize) > 232_448
+                        n_part += 1
+    assert n_part and n_whole
+    # f32 at d=128: 64 keys a stage, 2 x 64 x 1,072 B + 69,632 B of q rows
+    assert mma_stage_keys(512, 512, 128, 4) == 64
+    assert smem_bytes_mma(512, 512, 128, 4) == 2 * 64 * 1_072 + 69_632 == 206_848
 
 
 # -- the mma route's arithmetic, emulated in plain torch ---------------------
