@@ -15,19 +15,23 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    y and the final state, with and without an ``initial_state``, and the
    oracle gate at every feasible chunk), each through the route the
    resource model names (flash attention: ``wgmma``, ``mma`` or ``fma``;
-   the SSD scan: ``wgmma``, ``mma`` or ``fma``; rmsnorm: ``registers``, ``two-pass``
-   or ``scalar``), the others must be refused; then flash attention's card
-   cases in bf16 and f32, each on the route ``flash_attention.route``
-   names (``sq != sk``, ``q_offset`` of 64, 0 and -32, non-causal, odd
-   K-tile walks, d = 64, 96, 128 and 192, 512-, 256-, 32-row and one-row
-   query blocks, K blocks of 256 and 512 keys: ``wgmma``'s passes and
-   sub-tiles, ``mma``'s ring of partial tiles), the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
+   the SSD scan: ``wgmma``, ``mma`` or ``fma``; rmsnorm: ``registers``,
+   ``two-pass``, ``scalar`` or ``wide``), the others must be refused; then
+   flash attention's card cases in bf16 and f32, each on the route
+   ``flash_attention.route`` names (``sq != sk``, ``q_offset`` of 64, 0
+   and -32, non-causal, odd K-tile walks, d = 64, 96, 128, 160, 192 and
+   256, 512-, 256-, 32-row and one-row query blocks, K blocks of 256 and
+   512 keys: ``wgmma``'s passes and sub-tiles, ``mma``'s ring of partial
+   tiles and its heads above 128; d = 320 on the FMA kernel at tiles of 16
+   and 32 rows; each head dim above 128 must have run on its route only),
+   the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
    state size, with and without an initial state, five chunks of three
    heads), the SSD scan's on ``mma`` (f32 and bf16, chunks 32-256, dh/N
    24/40, 32/48 and 64/128, with and without an initial state) and on the
    FMA kernels at the sizes ``mma`` does not take (f32 chunk tiles beyond a
-   block, N above 128), and rmsnorm at 8193 x 4096 on every path and
-   ``block_rows``;
+   block, N 160-256, dh 256, chunk 512, odd dh, N and chunks), and rmsnorm
+   at 8193 x 4096 and wider rows (65,536 and 65,537 on the wide path) on
+   every path and ``block_rows``;
 3. the main path, ``repro_torch.launch.dse`` once per kernel on its
    full-width shape (vecmul and rmsnorm: greedy, 2 iterations; flash
    attention and the SSD scan: the default ensemble with the surrogate
@@ -77,7 +81,15 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    its FMA route where the main path ran it and a full-width chunk takes
    it), and the
    SSD scan at zamba2-2.7b's widths (80 heads of 64, d_state 64) on ``wgmma``,
-   held against its plain version and timed;
+   held against its plain version and timed; then the routes the main
+   path does not run, each against its plain version and timed beside its
+   bound and library call: flash attention on ``mma`` at Gemma 2 9B's
+   attention widths (16 heads, 8 KV heads, d 256, 4096 positions, causal,
+   (128, 128)) in bf16 and f32 with the compiled registers, on the FMA
+   kernel at d 320, the SSD scan's FMA kernels at mamba2-780m widths with
+   N 256 (chunk 256, bf16; each launch's time from the profiler), rmsnorm's
+   wide path at 1024 x 65,536 bf16 and its two-pass and scalar paths at
+   llama3-8b's rows;
 5. plan cells, llama3-8b at full width (launch counts set to 0 before and
    read after: the plan path runs torch math and launches no kernel of
    the port): the dry run (``repro_torch.launch.dryrun``) of
@@ -86,8 +98,9 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    key (bound, dominant term, GiB per device and ``fits_hbm`` printed);
    then the measured tier (``launch.measure.measure_cell``) times both
    cells on the card with the global batch cut to fit one card (prefill 32
-   -> 1, decode 128 -> 8; the only cuts, listed as ``reduced``), beside
-   the 1x1 dry run's bound for the same cut cell; then the model with 2
+   -> 1, decode 128 -> 8) and the depth to ``PLAN_CELL_LAYERS`` (8 of 32,
+   for time; both listed as ``reduced``), beside the 1x1 dry run's bound
+   for the same cut cell; then the model with 2
    layers at full width, a 2048-token prefill and 8 decode steps, on the
    card against f32 on the CPU on the same weights
    (``launch.measure.check_against_cpu``): in f32 within
@@ -99,11 +112,12 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    fake 16x16 mesh (baseline plan, batch 256, in a subprocess on the host
    while the card works) must write an ``ok`` record with every reference
    key; (b) the measured tier times a whole llama3-8b train step
-   (forward, backward under ``remat=full``, AdamW) at full width and depth
-   on the card, the global batch cut 256 -> 1 and the plan point baseline
-   + ``opt_int8`` (the baseline's f32 moments take 96.4 GB with the params
-   and grads), beside the 1x1 dry run's bound for that cell; its peak must
-   stay under the card's memory; (c) ``repro_torch.launch.train`` trains
+   (forward, backward under ``remat=full``, AdamW) at full width on the
+   card, its depth cut 32 -> ``TRAIN_CELL_LAYERS`` (8) and the global
+   batch 256 -> 1 (both listed under ``reduced``) and the plan point
+   baseline + ``opt_int8`` (the full model's f32 moments take 96.4 GB with
+   the params and grads), beside the 1x1 dry run's bound for that cell;
+   its peak must stay under the card's memory; (c) ``repro_torch.launch.train`` trains
    qwen3-0.6b at full width on the card (6 steps of 4 x 1024 tokens,
    checkpoints under the gitignored ``artifacts/``, deleted after), then
    restarts from its step-5 checkpoint, whose step must give the same loss
@@ -159,10 +173,12 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    the share of its top-k choices that differ printed (a near-tied choice
    flips); (c) the measured
    tier (``measure_cell``: the min of 3 timed runs after a warm one, 1 for
-   the steps of 8 s and more: mamba2 and seamless ``prefill_32k`` and
-   llava's) at full width, the batch from
-   ``one_device_batch`` and a depth from ``one_device_depth`` where the
-   model does not fit (the cuts printed under ``reduced``), beside the
+   the prefill steps: mamba2, seamless and llava ``prefill_32k``) at full
+   width, at most ``FAMILY_CELL_LAYERS`` (6) layers deep, the batch from
+   ``one_device_batch`` up to ``FAMILY_CELL_BATCH`` (4) and, for mixtral
+   and llava, the deepest cut up to
+   that depth from ``one_device_depth`` (the cuts printed under
+   ``reduced``), beside the
    1x1 dry run's bound and the bytes the process held on the card before
    the step: mamba2 ``prefill_32k`` and ``long_500k``, zamba2
    ``long_500k`` (9 K and V caches of 524288 positions), mixtral
@@ -239,7 +255,9 @@ Run from the root of a checkout on a machine with an H100 (the build needs
 
 It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
-the main path also launched has an entry of its own, ``<kernel>/<route>``),
+the main path also launched has an entry of its own, ``<kernel>/<route>``;
+the routes it does not launch are listed, with the same keys and phase 4's
+sizes, under their kernel's entry as ``other_routes``),
 ``launches`` sums the main-path runs (phase 3, the campaign, the Pareto
 cell, phase 7, phase 9 and phase 10, each counted from 0; the service's
 launches are those its kernel workers report; ``launches_by_path`` splits
@@ -383,7 +401,8 @@ def plan_cells(card: str) -> None:
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
     from repro_torch.launch.campaign import make_campaign_mesh
-    from repro_torch.launch.measure import MODEL_REL, check_against_cpu, measure_cell
+    from repro_torch.launch.measure import (MODEL_REL, check_against_cpu, cut_config,
+                                            measure_cell)
 
     ops.reset_launch_counts()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -407,8 +426,9 @@ def plan_cells(card: str) -> None:
         print(f"plan dry run llama3-8b {sh} pod16x16 (256 fake cards, baseline plan): "
               f"{dryrun_line(rec)}", flush=True)
 
-    # the measured tier on the card, beside the 1x1 dry run of the same cut cell
-    cfg = get_config("llama3-8b")
+    # the measured tier on the card, beside the 1x1 dry run of the same cut
+    # cell: full width, PLAN_CELL_LAYERS deep
+    cfg = cut_config("llama3-8b", PLAN_CELL_LAYERS)
     dmesh, _ = make_campaign_mesh("tiny", "cpu")
     mesh, name = make_campaign_mesh("tiny", "cuda")
     cuts = {"prefill_32k": 1, "decode_32k": 8}
@@ -424,7 +444,8 @@ def plan_cells(card: str) -> None:
             fail(f"measured tier llama3-8b {sh}: {rec.get('error')} {rec.get('trace')}")
         bound = d["roofline"]["bound_s"]
         line = {"arch": "llama3-8b", "shape": sh, "mesh": name,
-                "reduced": {"global_batch": [full.global_batch, cell.global_batch]},
+                "reduced": {**rec.get("reduced", {}),
+                            "global_batch": [full.global_batch, cell.global_batch]},
                 "measured_s": rec["measured_s"], "times_s": rec["times_s"],
                 "warm_s": rec["warm_s"], "peak_bytes": rec["peak_bytes"],
                 "dryrun_bound_s": bound, "dryrun_dominant": d["roofline"]["dominant"],
@@ -462,7 +483,7 @@ def train_cells(card: str) -> None:
     from repro_torch.launch import dryrun
     from repro_torch.launch import train as train_cli
     from repro_torch.launch.campaign import make_campaign_mesh
-    from repro_torch.launch.measure import check_train_against_cpu, measure_cell
+    from repro_torch.launch.measure import check_train_against_cpu, cut_config, measure_cell
     from repro_torch.sharding.plan import baseline_plan
 
     t_phase = time.perf_counter()
@@ -475,24 +496,28 @@ def train_cells(card: str) -> None:
          "--shape", "train_4k", "--mesh", "pod", "--force", "--out", str(out)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
 
-    # (b) the measured tier: llama3-8b train_4k at full width and depth,
+    # (b) the measured tier: llama3-8b train_4k at full width, its depth cut
+    # to TRAIN_CELL_LAYERS (which keeps the script within its time limit),
     # batch cut 256 -> 1, int8 moments, beside the 1x1 dry run of that cell
+    t = time.perf_counter()
     cfg = get_config("llama3-8b")
+    cut = cut_config("llama3-8b", TRAIN_CELL_LAYERS)
     full = SHAPE_BY_NAME["train_4k"]
     cell = dataclasses.replace(full, global_batch=1)
-    plan = dataclasses.replace(baseline_plan(cfg, cell), opt_int8=True)
+    plan = dataclasses.replace(baseline_plan(cut, cell), opt_int8=True)
     n = cfg.n_params()
     print(f"train cell plan: baseline + opt_int8 ({plan.to_dict()}); the baseline's f32 "
           f"moments are not run on one card: {n / 1e9:.2f} G params take "
           f"{n * (2 + 2 + 8) / 1e9:.1f} GB of bf16 params, bf16 grads and f32 m and v, "
-          f"against the card's 80 GB", flush=True)
+          f"against the card's 80 GB; cut: depth {cfg.n_layers} -> {cut.n_layers} layers "
+          f"(time), batch {full.global_batch} -> 1", flush=True)
     dmesh, _ = make_campaign_mesh("tiny", "cpu")
     mesh, name = make_campaign_mesh("tiny", "cuda")
-    d = dryrun.run_cell("llama3-8b", "train_4k", dmesh, name, plan, cfg=cfg, cell=cell,
+    d = dryrun.run_cell("llama3-8b", "train_4k", dmesh, name, plan, cfg=cut, cell=cell,
                         artifact_dir=OUT / "dryrun1x1")
     if d["status"] != "ok":
         fail(f"1x1 dry run llama3-8b train_4k: {d.get('error')}")
-    rec = measure_cell("llama3-8b", "train_4k", mesh, name, plan, cfg=cfg, cell=cell, runs=3)
+    rec = measure_cell("llama3-8b", "train_4k", mesh, name, plan, cfg=cut, cell=cell, runs=3)
     if rec["status"] != "ok" or rec["backend"] != "cuda":
         fail(f"measured tier llama3-8b train_4k: {rec.get('error')} {rec.get('trace')}")
     total = torch.cuda.get_device_properties(0).total_memory
@@ -502,14 +527,18 @@ def train_cells(card: str) -> None:
     line = {"arch": "llama3-8b", "shape": "train_4k", "mesh": name,
             "plan": {"name": plan.name, "remat": plan.remat, "opt_int8": plan.opt_int8,
                      "zero1": plan.zero1, "microbatches": plan.microbatches},
-            "reduced": {"global_batch": [full.global_batch, cell.global_batch]},
+            "reduced": {**rec.get("reduced", {}),
+                        "global_batch": [full.global_batch, cell.global_batch]},
             "measured_s": rec["measured_s"], "times_s": rec["times_s"],
             "warm_s": rec["warm_s"], "peak_bytes": rec["peak_bytes"],
             "card_bytes": total, "tokens_per_s": cell.seq_len / rec["measured_s"],
             "dryrun_bound_s": bound, "dryrun_dominant": d["roofline"]["dominant"],
             "dryrun_flops": d["hlo"]["flops"], "dryrun_hbm_bytes": d["hlo"]["hbm_bytes"],
             "dryrun_per_device_bytes": d["memory"]["per_device_bytes"],
-            "share_of_bound": bound / rec["measured_s"], "card": card}
+            "share_of_bound": bound / rec["measured_s"], "card": card,
+            "wall_s": round(time.perf_counter() - t, 1)}
+    if "n_layers" not in line["reduced"]:
+        fail(f"train cell: depth cut to {cut.n_layers} not recorded: {line['reduced']}")
     print("train cell " + json.dumps(line), flush=True)
     del rec
     torch.cuda.empty_cache()
@@ -674,6 +703,14 @@ def plan_loop(card: str):
 #: the five families beyond dense, one arch per family (and qwen3-moe)
 FAMILY_ARCHS = ("mixtral-8x7b", "qwen3-moe-235b-a22b", "llava-next-34b", "mamba2-780m",
                 "zamba2-2.7b", "seamless-m4t-medium")
+#: the depth and the largest global batch phase 8's measured cells run at
+#: (a hybrid's whole groups), and the depth of the llama3-8b steps that
+#: phase 5 and phase 6 time: cuts that keep the script within its time
+#: limit (PERF.md lists them)
+FAMILY_CELL_LAYERS = 6
+FAMILY_CELL_BATCH = 4
+PLAN_CELL_LAYERS = 8
+TRAIN_CELL_LAYERS = 8
 
 
 def dryrun_line(rec) -> str:
@@ -743,24 +780,37 @@ def other_families(card: str) -> None:
     # (c) the measured tier at full width, beside each cut cell's 1x1 bound
     mesh, name = make_campaign_mesh("tiny", "cuda")
     fit_dir = OUT / "fit1x1_families"
-    # the three steps of 8-31 s take one timed run after the warm one (the
-    # others the min of 3), a cut that keeps the script within its limit
+    # the prefill steps (8-31 s at full depth) take one timed run after the
+    # warm one (the others the min of 3), and every cell runs at most
+    # FAMILY_CELL_LAYERS layers (a hybrid's whole groups) and a global batch
+    # of at most FAMILY_CELL_BATCH: cuts that keep the script within its
+    # limit. The two that do not fit the card whole take the deepest cut up
+    # to that depth that fits (one_device_depth)
     cells = [("mamba2-780m", "prefill_32k", False, 1), ("mamba2-780m", "long_500k", False, 3),
              ("zamba2-2.7b", "long_500k", False, 3), ("mixtral-8x7b", "decode_32k", True, 3),
              ("llava-next-34b", "prefill_32k", True, 1),
              ("seamless-m4t-medium", "prefill_32k", False, 1)]
-    for arch, shape, cut_depth, runs in cells:
+    for arch, shape, fit_depth, runs in cells:
         t = time.perf_counter()
         full_cell = SHAPE_BY_NAME[shape]
         cfg = get_config(arch)
-        if cut_depth:
+        unit = cfg.hybrid_attn_every or 1
+        layers = min(cfg.n_layers, max(FAMILY_CELL_LAYERS // unit, 1) * unit)
+        if fit_depth:
             depth = measure.one_device_depth(arch, shape, artifact_dir=fit_dir,
-                                             run_name=f"{arch}-{shape}")
+                                             run_name=f"{arch}-{shape}", max_layers=layers)
             if depth["status"] != "ok":
                 fail(f"depth fit {arch} {shape}: {depth}")
-            cfg = measure.cut_config(arch, depth["n_layers"])
+            layers = depth["n_layers"]
+        cut_depth = layers < cfg.n_layers
+        if cut_depth:
+            cfg = measure.cut_config(arch, layers)
+            print(f"family cell {arch} {shape}: cut in depth {get_config(arch).n_layers} -> "
+                  f"{layers} layers", flush=True)
         plan = dryrun.baseline_plan(cfg, full_cell)
-        fit = measure.one_device_batch(arch, shape, plan, cfg=cfg, cell=full_cell,
+        capped = dataclasses.replace(
+            full_cell, global_batch=min(full_cell.global_batch, FAMILY_CELL_BATCH))
+        fit = measure.one_device_batch(arch, shape, plan, cfg=cfg, cell=capped,
                                        artifact_dir=fit_dir, run_name=f"{arch}-{shape}")
         if fit["status"] != "ok":
             fail(f"batch fit {arch} {shape}: {fit}")
@@ -1567,43 +1617,52 @@ def main() -> None:
     # where the sequence is) in sub-tiles; d = 96, a 320-key tile and short
     # query blocks (32 rows, one row) on the mma kernel, and f32 on it at
     # every tile, its ring holding part of a tile where two whole ones do
-    # not fit; d = 192 on the FMA kernel where its one stage fits
+    # not fit; d = 160, 192 and 256 on the mma kernel too (q read from
+    # shared memory; f32 at 256 on 4 warps); d = 320 on the FMA kernel at
+    # tiles of 16 and 32 rows, where its one stage fits
+    flash_cases = [(128, 256, 0, True), (128, 320, 64, True), (128, 256, -32, True),
+                   (192, 320, 0, False), (256, 128, 0, True), (32, 256, 224, True),
+                   (1, 256, 255, True), (512, 512, 64, True)]
     for dtype in (torch.bfloat16, torch.float32):
         n_ok = 0
         worst = 0.0
         routes = {}
-        for d in (64, 96, 128, 192):
-            for sq, sk, q_offset, causal in [(128, 256, 0, True), (128, 320, 64, True),
-                                             (128, 256, -32, True), (192, 320, 0, False),
-                                             (256, 128, 0, True), (32, 256, 224, True),
-                                             (1, 256, 255, True), (512, 512, 64, True)]:
+        for d in (64, 96, 128, 160, 192, 256, 320):
+            tiles = ([(16, 16), (32, 16)] if d > 256 else
+                     [(bq, bk) for bq in (64, 128, 256, 512) for bk in fa.WGMMA_BLOCKS])
+            for sq, sk, q_offset, causal in flash_cases:
                 gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
                 q, k, v = ((0.3 * torch.randn(2, s_, hh, d, generator=gen, device=dev)
                             ).to(dtype) for s_, hh in ((sq, 4), (sk, 2), (sk, 2)))
-                for bq in (64, 128, 256, 512):
-                    for bk in fa.WGMMA_BLOCKS:
-                        bq_, bk_ = min(bq, sq), min(bk, sk)
-                        if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or \
-                                (bk > sk and bk // 2 >= sk) or not \
-                                flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_,
-                                                          q.element_size()).feasible:
-                            continue
-                        kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
-                        key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
-                        before = _build.LAUNCHES[key]
-                        agree = conformance.agree_with_plain(
-                            fa.flash_attention_cuda(q, k, v, **kw),
-                            fa.flash_attention_plain(q, k, v, **kw))
-                        if not agree["passed"] or _build.LAUNCHES[key] != before + 1:
-                            fail(f"flash {dtype} d={d} sq={sq} sk={sk} {kw} on {key}: {agree}")
-                        worst = max(worst, agree["ratio"])
-                        routes[key] = routes.get(key, 0) + 1
-                        n_ok += 1
+                for bq, bk in tiles:
+                    bq_, bk_ = min(bq, sq), min(bk, sk)
+                    if sq % bq_ or sk % bk_ or (bq > sq and bq != 64) or \
+                            (bk > sk and bk // 2 >= sk) or not \
+                            flash_attention_resources(2, sq, sk, 4, 2, d, bq_, bk_,
+                                                      q.element_size()).feasible:
+                        continue
+                    kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
+                    key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
+                    before = _build.LAUNCHES[key]
+                    agree = conformance.agree_with_plain(
+                        fa.flash_attention_cuda(q, k, v, **kw),
+                        fa.flash_attention_plain(q, k, v, **kw))
+                    if not agree["passed"] or _build.LAUNCHES[key] != before + 1:
+                        fail(f"flash {dtype} d={d} sq={sq} sk={sk} {kw} on {key}: {agree}")
+                    worst = max(worst, agree["ratio"])
+                    routes.setdefault(d, {})
+                    routes[d][key] = routes[d].get(key, 0) + 1
+                    n_ok += 1
+        # every head dim above 128 launched the kernel route() names for it
+        for d in (160, 192, 256, 320):
+            want = "flash_attention/" + ("fma" if d > 256 else "mma")
+            if not routes.get(d, {}).get(want) or len(routes[d]) != 1:
+                fail(f"flash {dtype} d={d}: runs per route {routes.get(d)}, not all on {want}")
         print(f"cases flash_attention {str(dtype).split('.')[1]}: {n_ok} runs (sq != sk, "
-              f"q_offset 64/0/-32, non-causal, odd walks, d 64/96/128/192, block_q 512, "
-              f"256, 32 and 1 query rows, block_k 512/320/256) agree with the plain "
-              f"version row by row (worst row err/limit {worst:.3g}); runs per route "
-              f"{routes}", flush=True)
+              f"q_offset 64/0/-32, non-causal, odd walks, d 64/96/128/160/192/256/320, "
+              f"block_q 512, 256, 32 and 1 query rows, block_k 512/320/256; d 320 at tiles "
+              f"of 16 and 32 rows) agree with the plain version row by row (worst row "
+              f"err/limit {worst:.3g}); runs per head dim and route {routes}", flush=True)
     # the bf16 SSD scan on its wgmma route at every instantiated (chunk, N),
     # with and without an initial state, over five chunks of three heads
     n_ok = 0
@@ -1639,8 +1698,14 @@ def main() -> None:
     cases = [(dtype, dh, N, chunk, "mma") for dtype in dtypes
              for dh, N in ((24, 40), (32, 48), (64, 128)) for chunk in (32, 64, 128, 256)
              if ssd.route(dtypes[dtype], chunk, dh, N) == "mma"]
+    # the FMA kernels' census points: N above 128 (to 256), chunk 512, a row
+    # tile of 32 where 64 does not fit, dh and N padded to 4, masked last
+    # row tiles and slices
     cases += [("float32", 64, 128, 256, "fma"), ("float32", 32, 160, 64, "fma"),
-              ("bfloat16", 32, 160, 64, "fma")]
+              ("bfloat16", 32, 160, 64, "fma"), ("float32", 128, 256, 256, "fma"),
+              ("bfloat16", 64, 256, 256, "fma"), ("bfloat16", 96, 128, 512, "fma"),
+              ("float32", 256, 64, 128, "fma"), ("float32", 30, 130, 96, "fma"),
+              ("bfloat16", 130, 30, 160, "fma"), ("bfloat16", 64, 192, 320, "fma")]
     for dtype, dh, N, chunk, path in cases:
         if ssd.route(dtypes[dtype], chunk, dh, N) != path:
             fail(f"ssd {dtype} dh={dh} N={N} chunk={chunk} is not on route {path}")
@@ -1664,14 +1729,16 @@ def main() -> None:
         fail(f"cases ssd_scan mma: runs per route {routes}")
     print(f"cases ssd_scan mma: {n_ok} runs (f32 and bf16, dh/N 24/40, 32/48, 64/128, chunk "
           f"32-256, with and without initial_state, 3 chunks, 3 heads; the FMA kernels at "
-          f"f32 dh 64 N 128 chunk 256 and N 160) agree with the plain version row by row; "
+          f"f32 dh 64 N 128 chunk 256, N 160-256, chunk 512, dh 256, and dh/N/chunk "
+          f"30/130/96, 130/30/160, 64/192/320) agree with the plain version row by row; "
           f"runs per route {routes}, worst row err/limit by route "
           f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }", flush=True)
     # rmsnorm at an odd row count on every path and block_rows
     n_ok = 0
     worst = 0.0
     for rows, d, dtype in [(8193, 4096, torch.bfloat16), (8193, 6144, torch.bfloat16),
-                           (301, 100, torch.bfloat16)]:
+                           (301, 100, torch.bfloat16), (37, 65_536, torch.bfloat16),
+                           (19, 65_537, torch.float32)]:
         gen = torch.Generator(device=dev).manual_seed(rows + d)
         x = (0.3 * torch.randn(rows, d, generator=gen, device=dev)).to(dtype)
         w = (0.3 * torch.randn(d, generator=gen, device=dev)).to(dtype)
@@ -1685,7 +1752,8 @@ def main() -> None:
             worst = max(worst, agree["ratio"])
             n_ok += 1
     print(f"cases rmsnorm: {n_ok} runs (8193x4096 registers, 8193x6144 two-pass, "
-          f"301x100 scalar; every block_rows) agree with the plain version row by row "
+          f"301x100 scalar, 37x65536 bf16 and 19x65537 f32 wide; every block_rows) agree "
+          f"with the plain version row by row "
           f"(worst row err/limit {worst:.3g})", flush=True)
 
     print(f"phase 2 took {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -2142,6 +2210,114 @@ def main() -> None:
               f"{agree['ratio']:.3g} [{card}]", flush=True)
     del inputs
 
+    # the routes the main path does not run, each at a size only it takes,
+    # against its plain version and timed: flash attention at Gemma 2 9B's
+    # attention widths (google/gemma-2-9b config.json: 16 heads, 8 KV
+    # heads, head_dim 256) on mma in bf16 and f32 and at d 320 on the FMA
+    # kernel; the SSD scan's FMA kernels at mamba2-780m widths with N 256;
+    # rmsnorm's wide path at 1024 x 65,536 and its two-pass and scalar paths
+    # at llama3-8b's rows. Each goes into the kernels line under its
+    # kernel's entry, "other_routes"
+    other_routes = {"flash_attention": [], "ssd_scan": [], "rmsnorm": []}
+
+    def other_route(kernel, route_name, shape_txt, run, plain, bound, lib, source, *,
+                    wrapper=True, **extra):
+        before = _build.LAUNCHES[f"{kernel}/{route_name}"]
+        agree = conformance.agree_with_plain(run(), plain())
+        launched = _build.LAUNCHES[f"{kernel}/{route_name}"] == before + wrapper
+        if not agree["passed"] or not launched:
+            fail(f"{kernel}/{route_name} at {shape_txt}: kernel vs plain {agree}")
+        ms = time_ms(run, max_reps=20)
+        plain_ms = time_ms(plain, budget_s=0.5, max_reps=5)
+        library_ms = time_ms(lib) if lib is not None else None
+        bound_ms, bound_by = bound
+        entry = {"name": f"{kernel}/{route_name}", "route": "cuda", "kernel_route": route_name,
+                 "shape": shape_txt, "source": source, "replaces": modules[kernel].REPLACES,
+                 "launches": 0, "max_abs_err": agree["max_abs_err"], "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "library_ms": library_ms, **extra}
+        other_routes[kernel].append(entry)
+        lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+        extra_txt = "".join(f", {k} {v}" for k, v in extra.items())
+        print(f"time {kernel}/{route_name} {shape_txt}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / ms:.1f}% of bound, row check err/limit "
+              f"{agree['ratio']:.3g}{extra_txt} [{card}]", flush=True)
+
+    def flash_bound(p, dtype_name, causal, itemsize):
+        pairs = (sum(min(p["sk"], i + 1) for i in range(p["sq"])) if causal
+                 else p["sq"] * p["sk"])
+        t_ops = 4 * p["d"] * p["b"] * p["h"] * pairs / peak_flops(H100_SXM, dtype_name)
+        t_bytes = (2 * p["b"] * p["sq"] * p["h"] + 2 * p["b"] * p["sk"] * p["kh"]) * p["d"] \
+            * itemsize / H100_SXM.hbm_bw
+        return max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    for p, dtype_name, bq, bk in (
+            ({"b": 1, "sq": 4096, "sk": 4096, "h": 16, "kh": 8, "d": 256}, "bfloat16", 128, 128),
+            ({"b": 1, "sq": 4096, "sk": 4096, "h": 16, "kh": 8, "d": 256}, "float32", 128, 128),
+            ({"b": 1, "sq": 512, "sk": 512, "h": 16, "kh": 8, "d": 320}, "bfloat16", 32, 16)):
+        shape = KernelShape("attn_wide", "flash_attention", p, dtype_name)
+        q, k, v = conformance.make_inputs(shape, device=dev)
+        qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        kw = dict(causal=True, block_q=bq, block_k=bk)
+        route_name = fa.route(q.dtype, p["d"], bq, bk)
+        res = kernel_resources(shape, kw)
+        regs, local = fa.mma_attributes(p["d"], q.dtype) if route_name == "mma" else (0, 0)
+        other_route("flash_attention", route_name,
+                    f"b{p['b']} s{p['sq']} h{p['h']} kh{p['kh']} d{p['d']} {dtype_name} "
+                    f"causal ({bq}, {bk})",
+                    lambda: fa.flash_attention_cuda(q, k, v, **kw),  # noqa: B023
+                    lambda: fa.flash_attention_plain(q, k, v, **kw),  # noqa: B023
+                    flash_bound(p, dtype_name, True, q.element_size()),
+                    lambda: F.scaled_dot_product_attention(  # noqa: B023
+                        qh, kh_, vh, is_causal=True, enable_gqa=True),
+                    fa.SOURCES[route_name], threads=res.threads, smem=res.vmem_bytes,
+                    registers=regs, local_bytes=local)
+        del q, k, v, qh, kh_, vh
+
+    shape = KernelShape("ssd_mamba2_780m_n256_b8_s4096_bf16", "ssd_scan",
+                        {"b": 8, "s": 4096, "nh": 48, "dh": 64, "N": 256}, "bfloat16")
+    inputs = conformance.make_inputs(shape, device=dev)
+    L = 256
+    run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=L)  # noqa: E731
+    if ssd.route(torch.bfloat16, L, 64, 256) != "fma":
+        fail("ssd_scan at N 256 is not on the fma route")
+    split = ssd_launch_split(run)
+    other_route("ssd_scan", "fma", f"{shape.params} bf16 chunk {L}", run,
+                lambda: ssd.ssd_scan_plain(*inputs, chunk=L), ssd_bound(shape.params, L, 2),
+                None, ssd.SOURCES["fma"], row_tile=ssd.row_tile(L, 256, 64),
+                state_plan=list(ssd.state_plan(L, 256, 64)),
+                launch_ms={k: round(v, 4) for k, v in split.items()})
+    del inputs
+
+    gen = torch.Generator(device=dev).manual_seed(65_536)
+    x = (0.3 * torch.randn(1024, 65_536, generator=gen, device=dev)).to(torch.bfloat16)
+    w = (0.3 * torch.randn(65_536, generator=gen, device=dev)).to(torch.bfloat16)
+    other_route("rmsnorm", "wide", "1024 x 65536 bf16 block_rows 128",
+                lambda: rn.rmsnorm_cuda(x, w, block_rows=128),
+                lambda: rn.rmsnorm_plain(x, w, block_rows=128),
+                ((2 * x.numel() + w.numel()) * 2 / H100_SXM.hbm_bw * 1e3, "bytes"),
+                lambda: F.rms_norm(x, (65_536,), w, eps=1e-5), rn.SOURCE)
+    del x, w
+    # the two-pass and scalar paths at llama3-8b's rows, launched directly
+    # (the wrapper sends these rows to the register path)
+    shape = KERNEL_SHAPE_BY_NAME[full["rmsnorm"]]
+    x, w = conformance.make_inputs(shape, device=dev)
+    for kind in ("two-pass", "scalar"):
+        def direct(kind=kind):
+            out = torch.empty_like(x)
+            _build.check("rmsnorm_launch", _build.library().rmsnorm_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], 128,
+                1e-5, _build.dtype_code(x), rn.PATH_CODES[kind], 0, rn.THREADS,
+                rn.smem_bytes(x.shape[1]), _build.stream_ptr(dev)))
+            return out
+        other_route("rmsnorm", kind, f"{shape.name} block_rows 128", direct,
+                    lambda: rn.rmsnorm_plain(x, w, block_rows=128),
+                    ((2 * x.numel() + w.numel()) * 2 / H100_SXM.hbm_bw * 1e3, "bytes"),
+                    lambda: F.rms_norm(x, (x.shape[1],), w, eps=1e-5), rn.SOURCE,
+                    wrapper=False)
+    del x, w
+
     print(f"phase 4 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- phase 5: plan cells ----
@@ -2167,6 +2343,11 @@ def main() -> None:
     for r in results:
         kernel, route = r["name"].split("/")[0], r["kernel_route"]
         r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel, route)
+    for kernel, entries in other_routes.items():
+        for r in entries:
+            r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel,
+                                                               r["kernel_route"])
+        next(r for r in results if r["name"] == kernel)["other_routes"] = entries
 
     print(json.dumps({"kernels": results}), flush=True)
     print(card, flush=True)

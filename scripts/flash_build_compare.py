@@ -11,8 +11,9 @@ events) to a file. The cases are the calls both builds take on the same
 kernel: the ``wgmma`` route at llama3-8b's widths (b 1, 4096 positions, 32
 heads, 8 KV heads, d 128, bf16) at its eight tiles of 64 and 128, causal
 and not, and the ``mma`` route where its two K/V stages hold whole tiles
-(f32 at d 64 and 128, bf16 at d 96; 512 positions; and every tile of the
-campaign's f32 cell, ``attn_s128_f32``). ``--compare`` prints
+(f32 at d 16, 64 and 128, bf16 at d 32 and 96; 512 positions; and every
+tile of the campaign's f32 cell, ``attn_s128_f32``). The script of one
+checkout can save the other's build: ``PYTHONPATH`` picks the package. ``--compare`` prints
 each case's largest absolute difference between two saved files, and the
 times side by side. Run it as parent, change, change, parent in one call
 to hold the times to one card.
@@ -36,7 +37,9 @@ CASES = ([("bfloat16", 1, 4096, 32, 8, 128, bq, bk, causal)
             for dtype, d, tiles in (("float32", 64, ((64, 64), (64, 128), (128, 64),
                                                      (128, 128))),
                                     ("float32", 128, ((64, 64), (128, 64))),
-                                    ("bfloat16", 96, ((64, 64), (128, 128))))
+                                    ("bfloat16", 96, ((64, 64), (128, 128))),
+                                    ("float32", 16, ((64, 64), (128, 128))),
+                                    ("bfloat16", 32, ((32, 64), (128, 128))))
             for bq, bk in tiles for causal in (True, False)]
          + [("float32", 2, 128, 4, 4, 64, bq, bk, causal)  # attn_s128_f32
             for bq in (64, 128) for bk in (64, 128) for causal in (True, False)])

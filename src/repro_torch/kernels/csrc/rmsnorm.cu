@@ -14,7 +14,7 @@
 // `block_rows` rows (the DSE's tile); each of its 16 warps owns whole rows
 // (rows warp, warp + 16, ...), so a row needs no barrier: the sum of squares
 // is reduced with warp shuffles only. w is converted to f32 into shared
-// memory once per CTA. Three paths, chosen by the wrapper
+// memory once per CTA. Four paths, chosen by the wrapper
 // (repro_torch/kernels/rmsnorm.py::path) before the launch:
 //   registers: rows of whole 16-byte vectors of at most 8 KB. Each lane
 //     issues all its NV <= 16 vector loads of the row at once and keeps them
@@ -27,11 +27,21 @@
 //     unchanged.
 //   scalar: rows that are not whole 16-byte vectors, two passes of one
 //     element per lane.
+//   wide: rows whose w in f32 (4 * d bytes) does not fit a block's shared
+//     memory, d above 58,112. One CTA a row (block_rows sets no tile here:
+//     a row already holds tens of KB of loads): each thread sums the
+//     squares of its vectors (or elements), the 16 warps' sums meet in 64
+//     bytes of static shared memory, and the second pass reads the row
+//     again (from L2 where it is still there: 128 KB at d = 65,536 in
+//     bf16) together with w from device memory (L2 after the first rows).
+//     Bound by bytes like the others; it moves the row three times instead
+//     of twice, and w once a row from L2. Whole 16-byte vectors where d and
+//     the three pointers allow, else one element a thread.
 // Statistics are f32 and the result is rounded once to the input type, as in
 // the Pallas kernel. The ragged last CTA masks its rows; nothing is padded.
 //
 // Shared memory (repro_torch/kernels/rmsnorm.py::smem_bytes): 4 * d bytes,
-//   w in f32.
+//   w in f32; 0 dynamic bytes on the wide path.
 // Resource model (resource_model.py::rmsnorm_resources):
 //   n_blocks = ceil(rows / block_rows), threads = 512, registers per thread
 //   modelled as 4 * NV + 32 on the register path (NV vectors per lane), 40
@@ -47,7 +57,7 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 
-enum { PATH_SCALAR = 0, PATH_TWO_PASS = 1, PATH_REGISTERS = 2 };
+enum { PATH_SCALAR = 0, PATH_TWO_PASS = 1, PATH_REGISTERS = 2, PATH_WIDE = 3 };
 
 template <typename T>
 __device__ __forceinline__ float sum_squares(const uint4& raw) {
@@ -152,13 +162,64 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// one row a CTA, w read from device memory: rows whose w in f32 would not
+// fit shared memory; whole vectors (VECTOR) or one element per thread
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(THREADS, 1)
+    rmsnorm_wide(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                 int rows, int d, int block_rows, float eps) {
+  constexpr int V = VECTOR ? Vec16<T>::N : 1;
+  __shared__ float partial[WARPS];
+  const int n = d / V, tid = threadIdx.x, r = blockIdx.x;
+  const T* xr = x + (size_t)r * d;
+  T* orow = out + (size_t)r * d;
+  float ss = 0.f;
+  if (VECTOR) {
+#pragma unroll 4
+    for (int v = tid; v < n; v += THREADS)
+      ss += sum_squares<T>(reinterpret_cast<const uint4*>(xr)[v]);
+  } else {
+#pragma unroll 4
+    for (int c = tid; c < n; c += THREADS) {
+      const float f = to_float(xr[c]);
+      ss += f * f;
+    }
+  }
+  ss = warp_sum(ss);
+  if (tid % 32 == 0) partial[tid / 32] = ss;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int i = 0; i < WARPS; ++i) total += partial[i];
+  const float inv = rsqrtf(total / (float)d + eps);
+  if (VECTOR) {
+#pragma unroll 4
+    for (int v = tid; v < n; v += THREADS) {
+      const uint4 wraw = reinterpret_cast<const uint4*>(w)[v];
+      const T* pw = reinterpret_cast<const T*>(&wraw);
+      float wv[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) wv[k] = to_float(pw[k]);
+      reinterpret_cast<uint4*>(orow)[v] =
+          normalise<T>(reinterpret_cast<const uint4*>(xr)[v], wv, inv);
+    }
+  } else {
+#pragma unroll 4
+    for (int c = tid; c < n; c += THREADS)
+      orow[c] = from_float<T>((to_float(xr[c]) * inv) * to_float(w[c]));
+  }
+}
+
 template <typename T>
 using Kernel = void (*)(const T*, const T*, T*, int, int, int, float);
 
+// nv: vectors per lane on the register path; on the wide path, whether the
+// rows and pointers take 16-byte vectors
 template <typename T>
 Kernel<T> pick(int path, int nv) {
   if (path == PATH_SCALAR) return rmsnorm_two_pass<T, false>;
   if (path == PATH_TWO_PASS) return rmsnorm_two_pass<T, true>;
+  if (path == PATH_WIDE) return nv ? rmsnorm_wide<T, true> : rmsnorm_wide<T, false>;
   if (path != PATH_REGISTERS) return nullptr;
   switch (nv) {
     case 1: return rmsnorm_registers<T, 1>;
@@ -173,6 +234,9 @@ Kernel<T> pick(int path, int nv) {
 template <typename T>
 int launch(const void* x, const void* w, void* out, int rows, int d, int block_rows, float eps,
            int path, int nv, int threads, int smem, cudaStream_t s) {
+  if (path == PATH_WIDE)
+    nv = d % Vec16<T>::N == 0 && (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+                                  reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   Kernel<T> kern = pick<T>(path, nv);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -180,7 +244,7 @@ int launch(const void* x, const void* w, void* out, int rows, int d, int block_r
     cudaGetLastError();  // clear it, or the next launch's check would report it
     return (int)e;
   }
-  const int grid = (rows + block_rows - 1) / block_rows;
+  const int grid = path == PATH_WIDE ? rows : (rows + block_rows - 1) / block_rows;
   kern<<<grid, threads, smem, s>>>((const T*)x, (const T*)w, (T*)out, rows, d, block_rows, eps);
   return (int)cudaGetLastError();
 }
@@ -188,14 +252,16 @@ int launch(const void* x, const void* w, void* out, int rows, int d, int block_r
 }  // namespace
 
 // path: 0 scalar, 1 two-pass, 2 registers with `nv` vectors per lane (1, 2,
-// 4, 8 or 16, at least ceil(d * itemsize / 16 / 32))
+// 4, 8 or 16, at least ceil(d * itemsize / 16 / 32)), 3 wide (no shared
+// memory asked; `nv` is not read)
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out, int rows, int d,
                               int block_rows, float eps, int dtype, int path, int nv,
                               int threads, int smem, void* stream) {
   const int v = dtype == DTYPE_F32 ? 4 : 8;
   if (rows <= 0 || d <= 0 || block_rows <= 0 || threads != THREADS ||
-      (path != PATH_SCALAR && d % v != 0) ||
-      (path == PATH_REGISTERS && (long long)nv * 32 * v < d) || smem < 4 * d ||
+      ((path == PATH_TWO_PASS || path == PATH_REGISTERS) && d % v != 0) ||
+      (path == PATH_REGISTERS && (long long)nv * 32 * v < d) ||
+      (path != PATH_WIDE && smem < 4LL * d) || smem < 0 ||
       (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -59,14 +59,25 @@
 // matrix product, gemm_kmajor: both operands k-major, each thread a 4x4
 // register tile fed by two float4 loads per step of k, so 16 FMAs cost two
 // shared-memory loads (a scalar inner loop pays two loads per FMA). Hence
-// dh and N must be multiples of 4, and operands that arrive row-major from
-// device memory (C, B rows; the state) are stored transposed.
+// the output dims are whole float4s: dh and N are zero-padded to 4 (dh4,
+// N4) in shared memory, and operands that arrive row-major from device
+// memory (C, B rows; the state) are stored transposed.
+//
+// Tiles: every call picks them (repro_torch/kernels/ssd_scan.py::row_tile,
+// state_plan) so that its blocks fit: the largest row tile tl of 64, 32,
+// 16, 8 (at most L rounded up to 4), the largest state tile tq of 32, 16,
+// 8, and with it the largest state slice ps of 64, 32, 16, 8 (at most dh
+// rounded up to 4). A chunk that tl or tq does not divide ends in a masked
+// tile (its missing rows staged as zeros, never written), and a dh that ps
+// does not divide in a masked slice, so any dh, N and chunk launch whose
+// smallest tiles fit (chunks up to about 3,500 rows at dh and N of 256).
 //
 // Shared memory (repro_torch/kernels/ssd_scan.py::smem_bytes_*), f32:
-//   intra: L*(tl+4) + tl*dh + 2*pad4(L) + max(2*N*(tl+4), tl*dh + tl*(tl+4))
-//   state: N*(tq+4) + tq*N + tq*ps + 2*pad4(L) + N*ps + ps*(N+4)
-//   with tl = min(L, 64), tq = min(L, 32), ps the largest of 64, 32, 16, 8,
-//   4 dividing dh. At L=256, N=128, dh=64 that is 157,696 B and 111,616 B.
+//   intra: lt*(tl+4) + tl*dh4 + 2*lt + max(2*N*(tl+4), tl*dh4 + tl*(tl+4)),
+//     lt = L rounded up to whole row tiles
+//   state: N*(tq+4) + tq*N4 + tq*ps + 2*pad4(L) + N4*ps + ps*(N4+4)
+//   At L=256, N=128, dh=64 (tl 64, tq 32, ps 64) that is 157,696 B and
+//   111,616 B; at dh 128, N 256, L 256 the row tile drops to 32.
 // Resource model (resource_model.py::ssd_scan_resources): the three
 // launches' times added, each as blocks in waves over the SMs at the
 // occupancy shared memory and threads allow.
@@ -132,14 +143,16 @@ __device__ __forceinline__ void gemm_kmajor(const float* __restrict__ A, int lda
 }
 
 // Stage rows x cols values of T (row r at src + r * ld) into shared memory
-// as f32: store(r, c, value) puts each one. Rows whose length and stride are
-// whole 16-byte vectors go by 16-byte loads, several in flight per thread;
-// anything else element by element.
+// as f32: store(r, c, value) puts each one, and zeros into the rest of
+// rows_to x cols_to (a masked tile's missing rows, padded columns), so
+// that no stale value reaches a product. Rows whose length, stride and start
+// are whole 16-byte vectors go by 16-byte loads, several in flight per
+// thread; anything else element by element.
 template <typename T, typename Store>
 __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long long ld, int rows,
-                                           int cols, Store store) {
+                                           int cols, int rows_to, int cols_to, Store store) {
   constexpr int V = Vec16<T>::N;
-  if (cols % V == 0 && ld % V == 0) {
+  if (cols % V == 0 && ld % V == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
     const int vpr = cols / V, total = rows * vpr;
 #pragma unroll 4
     for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -155,6 +168,12 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, long long 
       store(r, c, to_float(src[r * ld + c]));
     }
   }
+  if (rows < rows_to || cols < cols_to) {
+    for (int idx = threadIdx.x; idx < rows_to * cols_to; idx += blockDim.x) {
+      const int r = idx / cols_to, c = idx - r * cols_to;
+      if (r >= rows || c >= cols) store(r, c, 0.f);
+    }
+  }
 }
 
 template <typename T>
@@ -165,25 +184,25 @@ __global__ void ssd_state_kernel(const T* __restrict__ x, const T* __restrict__ 
                                  int nc, int L, int nh, int dh, int N, int tq, int ps) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ldc = tq + 4, ldd = N + 4;
+  const int np = pad4(N), ldc = tq + 4, ldd = np + 4;
   float* Ct = smem;                  // [N][tq+4]  C rows, transposed
-  float* Bt = Ct + N * ldc;          // [tq][N]    B rows
-  float* xt = Bt + tq * N;           // [tq][ps]   x * w
+  float* Bt = Ct + N * ldc;          // [tq][N4]   B rows
+  float* xt = Bt + tq * np;          // [tq][ps]   x * w
   float* ecs = xt + tq * ps;         // [L]        exp(cs_l)
   float* wl = ecs + pad4(L);         // [L]        w_l = dt_l * exp(cs_L - cs_l)
-  float* St = wl + pad4(L);          // [N][ps]    carried state, transposed
-  float* dS = St + N * ps;           // [ps][N+4]  this chunk's own state
+  float* St = wl + pad4(L);          // [N4][ps]   carried state, transposed
+  float* dS = St + np * ps;          // [ps][N4+4] this chunk's own state
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const int bi = blockIdx.x / nh, h = blockIdx.x % nh;
-  const int p0 = blockIdx.y * ps;
+  const int p0 = blockIdx.y * ps, pc = min(ps, dh - p0);  // this slice's columns of dh
   const long long s = (long long)nc * L;
   const long long sbase = ((long long)bi * nh + h) * dh + p0;  // [b,nh,dh,N] row of q=0
   const long long xrow = (long long)nh * dh;                    // x and y_inter row stride
 
-  for (int idx = tid; idx < ps * N; idx += nt) {
-    const int q = idx / N, n = idx - q * N;
-    St[n * ps + q] = s0 ? s0[(sbase + q) * N + n] : 0.f;
+  for (int idx = tid; idx < ps * np; idx += nt) {
+    const int q = idx / np, n = idx - q * np;
+    St[n * ps + q] = s0 && q < pc && n < N ? s0[(sbase + q) * N + n] : 0.f;
   }
 
   for (int c = 0; c < nc; ++c) {
@@ -195,35 +214,36 @@ __global__ void ssd_state_kernel(const T* __restrict__ x, const T* __restrict__ 
       wl[l] = to_float(dt[(row0 + l) * nh + h]) * expf(cs_end - cl);
     }
     for (int j0 = 0; j0 < L; j0 += tq) {
+      const int rows = min(tq, L - j0);  // fewer in a masked last tile
       __syncthreads();  // St, ecs and wl are current; the last tile's readers are done
       const T* crow = C + (row0 + j0) * N;
       const T* brow = B + (row0 + j0) * N;
-      stage_rows(crow, N, tq, N, [&](int j, int n, float v) { Ct[n * ldc + j] = v; });
-      stage_rows(brow, N, tq, N, [&](int j, int n, float v) { Bt[j * N + n] = v; });
-      stage_rows(x + (row0 + j0) * xrow + h * dh + p0, xrow, tq, ps,
-                 [&](int j, int q, float v) { xt[j * ps + q] = v * wl[j0 + j]; });
+      stage_rows(crow, N, rows, N, tq, N, [&](int j, int n, float v) { Ct[n * ldc + j] = v; });
+      stage_rows(brow, N, rows, N, tq, np, [&](int j, int n, float v) { Bt[j * np + n] = v; });
+      stage_rows(x + (row0 + j0) * xrow + h * dh + p0, xrow, rows, pc, tq, ps,
+                 [&](int j, int q, float v) { xt[j * ps + q] = j < rows ? v * wl[j0 + j] : v; });
       __syncthreads();
       // inter-chunk term for these rows: (C_l . S_prev[q, :]) * exp(cs_l)
       float* yo = y_inter + (row0 + j0) * xrow + h * dh + p0;
       gemm_kmajor(Ct, ldc, St, ps, tq, ps, N, [&](int j, int q, float v) {
-        yo[j * xrow + q] = v * ecs[j0 + j];
+        if (j < rows && q < pc) yo[j * xrow + q] = v * ecs[j0 + j];
       });
       // this chunk's own state: sum over the rows of xt[l][q] * B_l[n]
       const bool first = j0 == 0;
-      gemm_kmajor(xt, ps, Bt, N, ps, N, tq, [&](int q, int n, float v) {
+      gemm_kmajor(xt, ps, Bt, np, ps, np, tq, [&](int q, int n, float v) {
         float* d = dS + q * ldd + n;
         *d = first ? v : *d + v;
       });
     }
     __syncthreads();  // every reader of St and writer of dS in this chunk is done
     const float decay = expf(cs_end);
-    for (int idx = tid; idx < ps * N; idx += nt) {
+    for (int idx = tid; idx < ps * np; idx += nt) {
       const int n = idx / ps, q = idx - n * ps;
       St[idx] = St[idx] * decay + dS[q * ldd + n];
     }
     __syncthreads();  // before the next chunk's ecs, wl and dS are written
   }
-  for (int idx = tid; idx < ps * N; idx += nt) {
+  for (int idx = tid; idx < pc * N; idx += nt) {
     const int q = idx / N, n = idx - q * N;
     s_final[(sbase + q) * N + n] = St[n * ps + q];
   }
@@ -237,28 +257,31 @@ __global__ void ssd_intra_kernel(const T* __restrict__ x, const T* __restrict__ 
                                  int L, int nh, int dh, int N, int tl) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int ldt = tl + 4;
-  float* Gt = smem;                      // [L][tl+4]  C_l . B_s, transposed (s-major)
-  float* acc = Gt + L * ldt;             // [tl][dh]
-  float* csh = acc + tl * dh;            // [L]        one head's cumsum
-  float* dth = csh + pad4(L);            // [L]        one head's dt
-  float* stage = dth + pad4(L);
+  const int ldt = tl + 4, dhp = pad4(dh);
+  const int lt = (L + tl - 1) / tl * tl;  // the chunk's rows, padded to whole row tiles
+  float* Gt = smem;                      // [lt][tl+4]  C_l . B_s, transposed (s-major)
+  float* acc = Gt + lt * ldt;            // [tl][dh4]
+  float* csh = acc + tl * dhp;           // [lt]        one head's cumsum
+  float* dth = csh + lt;                 // [lt]        one head's dt
+  float* stage = dth + lt;
   float* Cs = stage;                     // phase 1: [N][tl+4]  C rows, transposed
   float* Bs = Cs + N * ldt;              //          [N][tl+4]  B rows, transposed
-  float* xs = stage;                     // phase 2: [tl][dh]   dt * x
-  float* Pt = xs + tl * dh;              //          [tl][tl+4] masked decay * G, s-major
+  float* xs = stage;                     // phase 2: [tl][dh4]  dt * x
+  float* Pt = xs + tl * dhp;             //          [tl][tl+4] masked decay * G, s-major
 
   const int tid = threadIdx.x, nt = blockDim.x;
   const long long row0 = (long long)blockIdx.x * L;  // first row of the chunk in [b*s]
   const int rt = blockIdx.y, l0 = rt * tl, n_st = rt + 1;
+  const int rows = min(tl, L - l0);  // fewer in a masked last row tile
   const long long xrow = (long long)nh * dh;
 
   // phase 1: G = C . B^T for rows l0.. of this tile against the s tiles at
   // or below the diagonal; shared by every head
-  stage_rows(C + (row0 + l0) * N, N, tl, N, [&](int i, int n, float v) { Cs[n * ldt + i] = v; });
+  stage_rows(C + (row0 + l0) * N, N, rows, N, tl, N,
+             [&](int i, int n, float v) { Cs[n * ldt + i] = v; });
   for (int st = 0; st < n_st; ++st) {
     __syncthreads();
-    stage_rows(B + (row0 + st * tl) * N, N, tl, N,
+    stage_rows(B + (row0 + st * tl) * N, N, min(tl, L - st * tl), N, tl, N,
                [&](int j, int n, float v) { Bs[n * ldt + j] = v; });
     __syncthreads();
     float* gs = Gt + st * tl * ldt;
@@ -270,44 +293,45 @@ __global__ void ssd_intra_kernel(const T* __restrict__ x, const T* __restrict__ 
   for (int h = 0; h < nh; ++h) {
     __syncthreads();  // G is complete; the last head's readers are done
     for (int l = tid; l < n_st * tl; l += nt) {
-      csh[l] = cs[(row0 + l) * nh + h];
-      dth[l] = to_float(dt[(row0 + l) * nh + h]);
+      csh[l] = l < L ? cs[(row0 + l) * nh + h] : 0.f;
+      dth[l] = l < L ? to_float(dt[(row0 + l) * nh + h]) : 0.f;
     }
-    for (int idx = tid; idx < tl * dh; idx += nt) acc[idx] = 0.f;
+    for (int idx = tid; idx < tl * dhp; idx += nt) acc[idx] = 0.f;
     for (int st = 0; st < n_st; ++st) {
-      const int s0 = st * tl;
+      const int s0 = st * tl, srows = min(tl, L - s0);
       __syncthreads();  // csh and dth are current; the last tile's readers are done
-      stage_rows(x + (row0 + s0) * xrow + h * dh, xrow, tl, dh,
-                 [&](int j, int p, float v) { xs[j * dh + p] = v * dth[s0 + j]; });
+      stage_rows(x + (row0 + s0) * xrow + h * dh, xrow, srows, dh, tl, dhp,
+                 [&](int j, int p, float v) { xs[j * dhp + p] = v * dth[s0 + j]; });
       for (int idx = tid; idx < tl * tl; idx += nt) {
         const int j = idx / tl, i = idx - j * tl;
         const int la = l0 + i, sa = s0 + j;
-        Pt[j * ldt + i] = sa <= la ? Gt[sa * ldt + i] * expf(csh[la] - csh[sa]) : 0.f;
+        Pt[j * ldt + i] = sa <= la && la < L ? Gt[sa * ldt + i] * expf(csh[la] - csh[sa]) : 0.f;
       }
       __syncthreads();
-      gemm_kmajor(Pt, ldt, xs, dh, tl, dh, tl,
-                  [&](int i, int p, float v) { acc[i * dh + p] += v; });
+      gemm_kmajor(Pt, ldt, xs, dhp, tl, dhp, tl,
+                  [&](int i, int p, float v) { acc[i * dhp + p] += v; });
     }
     __syncthreads();
-    for (int idx = tid; idx < tl * dh; idx += nt) {
+    for (int idx = tid; idx < rows * dh; idx += nt) {
       const int i = idx / dh, p = idx - i * dh;
       const long long o = (row0 + l0 + i) * xrow + h * dh + p;
-      y[o] = from_float<T>(acc[idx] + y_inter[o]);
+      y[o] = from_float<T>(acc[i * dhp + p] + y_inter[o]);
     }
   }
 }
 
 static long long intra_smem(int L, int N, int dh, int tl) {
-  const long long ldt = tl + 4;
+  const long long ldt = tl + 4, dhp = pad4(dh), lt = (L + tl - 1) / tl * (long long)tl;
   const long long stage1 = 2LL * N * ldt;
-  const long long stage2 = (long long)tl * dh + tl * ldt;
+  const long long stage2 = tl * dhp + tl * ldt;
   const long long stage = stage1 > stage2 ? stage1 : stage2;
-  return 4LL * (L * ldt + (long long)tl * dh + 2LL * pad4(L) + stage);
+  return 4LL * (lt * ldt + tl * dhp + 2LL * lt + stage);
 }
 
 static long long state_smem(int L, int N, int tq, int ps) {
-  return 4LL * ((long long)N * (tq + 4) + (long long)tq * N + (long long)tq * ps +
-                2LL * pad4(L) + (long long)N * ps + (long long)ps * (N + 4));
+  const long long np = pad4(N);
+  return 4LL * ((long long)N * (tq + 4) + tq * np + (long long)tq * ps + 2LL * pad4(L) +
+                np * ps + ps * (np + 4));
 }
 
 // the chunk cumsum alone, cs [n_rows * L, nh] f32 from dt in `dtype`; the
@@ -345,7 +369,8 @@ static int launch(const void* x, const void* dt, const void* A, const void* B, c
     cudaGetLastError();  // clear it, or the next launch's check would report it
     return (int)e;
   }
-  ssd_state_kernel<T><<<dim3((unsigned)(b * nh), (unsigned)(dh / ps)), threads, smem_state, st>>>(
+  ssd_state_kernel<T><<<dim3((unsigned)(b * nh), (unsigned)((dh + ps - 1) / ps)), threads,
+                        smem_state, st>>>(
       (const T*)x, (const T*)dt, (const T*)B, (const T*)C, (const float*)cs,
       (const float*)s0, (float*)y_inter, (float*)s_final, nc, L, nh, dh, N, tq, ps);
   e = cudaGetLastError();
@@ -357,7 +382,8 @@ static int launch(const void* x, const void* dt, const void* A, const void* B, c
     cudaGetLastError();
     return (int)e;
   }
-  ssd_intra_kernel<T><<<dim3((unsigned)n_rows, (unsigned)(L / tl)), threads, smem_intra, st>>>(
+  ssd_intra_kernel<T><<<dim3((unsigned)n_rows, (unsigned)((L + tl - 1) / tl)), threads,
+                        smem_intra, st>>>(
       (const T*)x, (const T*)dt, (const T*)B, (const T*)C, (const float*)cs,
       (const float*)y_inter, (T*)y, L, nh, dh, N, tl);
   return (int)cudaGetLastError();
@@ -369,10 +395,9 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* A, con
                                int tl, int tq, int ps, int dtype, int threads, int smem_intra,
                                int smem_state, void* stream) {
   if (b <= 0 || s <= 0 || nh <= 0 || dh <= 0 || N <= 0 || L <= 0 || tl <= 0 || tq <= 0 ||
-      ps <= 0 || s % L != 0 || L % tl != 0 || L % tq != 0 || dh % ps != 0 ||
-      N % 4 != 0 || tl % 4 != 0 || tq % 4 != 0 || ps % 4 != 0 ||
-      dh / ps > 65535 || L / tl > 65535 || threads < 32 || threads > 1024 ||
-      (long long)smem_intra < intra_smem(L, N, dh, tl) ||
+      ps <= 0 || s % L != 0 || tl % 4 != 0 || tq % 4 != 0 || ps % 4 != 0 ||
+      (dh + ps - 1) / ps > 65535 || (L + tl - 1) / tl > 65535 || threads < 32 ||
+      threads > 1024 || (long long)smem_intra < intra_smem(L, N, dh, tl) ||
       (long long)smem_state < state_smem(L, N, tq, ps) ||
       (dtype != DTYPE_F32 && dtype != DTYPE_BF16))
     return (int)cudaErrorInvalidValue;

@@ -13,14 +13,15 @@ launch: bf16 inputs at d = 64 or 128 with block_q and block_k in
 {64, 128, 256, 512} take ``csrc/flash_attention_wgmma.cu`` (``wgmma``
 products, TMA-fed K/V; a q tile above 128 rows runs in passes of 128, a K
 tile above 128 keys is walked in sub-tiles of 128); every other call up to
-d = 128 (f32; bf16 at another d, another tile or a sequence shorter than
+d = 256 (f32; bf16 at another d, another tile or a sequence shorter than
 64) takes ``csrc/flash_attention.cu`` (``mma.sync`` TF32 products with
 each operand split into two TF32 parts, three products per product for f32
 and two where the operand is bf16, which keeps f32 accuracy: plain TF32
 would not hold f32 to its plain version; its K/V ring holds whole tiles
-where two fit a block, else sub-tiles); d above 128 takes
-``csrc/flash_attention_fma.cu`` (f32 FMAs on the CUDA cores, one K/V
-stage), which refuses a tile whose shared memory does not fit.
+where two fit a block, else sub-tiles; above d = 128 q stays in shared
+memory); d above 256 takes ``csrc/flash_attention_fma.cu`` (f32 FMAs on
+the CUDA cores, one K/V stage), which refuses a tile whose shared memory
+does not fit.
 A failed build or launch raises; no route stands in for another.
 ``flash_attention_plain`` walks the same ``block_q`` / ``block_k`` tiles
 with the same online softmax in plain torch, including the causal tile
@@ -50,10 +51,11 @@ NEG_INF = -1e30
 
 #: head dims the mma kernel is instantiated for; d is zero-padded inside
 #: the kernel to the next of them (``FLASH_MMA_CASE`` in its source lists
-#: the same), and a larger d is refused
-MMA_D = (16, 32, 64, 96, 128)
-#: most warps of an mma block (16 query rows each); a larger q tile runs in
-#: passes of 16 * MMA_WARPS rows
+#: the same), and a larger d goes to the FMA kernel
+MMA_D = (16, 32, 64, 96, 128, 160, 192, 256)
+#: most warps of an mma block (16 query rows each; fewer where their q rows
+#: would not leave a block room for two stages of one sub-tile, see
+#: :func:`mma_max_warps`); a larger q tile runs in passes of 16 rows a warp
 MMA_WARPS = 8
 #: threads per CUDA block of the FMA kernel
 FMA_THREADS = 256
@@ -78,7 +80,7 @@ def route(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """Which kernel runs a call at the tile it runs (``min(block, seq)``),
     decided before the launch: ``"wgmma"`` for bf16 at a head dim in
     ``WGMMA_D`` and ``block_q``, ``block_k`` in ``WGMMA_BLOCKS``; else
-    ``"mma"`` where d is at most 128; else ``"fma"``."""
+    ``"mma"`` where d is at most 256; else ``"fma"``."""
     if (dtype == torch.bfloat16 and d in WGMMA_D and block_q in WGMMA_BLOCKS
             and block_k in WGMMA_BLOCKS):
         return "wgmma"
@@ -125,10 +127,24 @@ def mma_sub_keys(d: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def mma_threads(block_q: int) -> int:
+def mma_max_warps(d: int, itemsize: int) -> int:
+    """The most warps of an mma block at this head dim and type:
+    ``MMA_WARPS``, halved until their q rows (16 a warp) and two stages of
+    one sub-tile fit a block (4 for f32 at d above 192; ``max_warps`` in the
+    kernel's source computes the same)."""
+    k_words, v_words = _mma_row_words(d, itemsize)
+    stages = 2 * mma_sub_keys(d) * (k_words + v_words)
+    warps = MMA_WARPS
+    while warps > 1 and 4 * (stages + 16 * warps * k_words) > H100_SXM.smem_per_block:
+        warps //= 2
+    return warps
+
+
+@functools.lru_cache(maxsize=None)
+def mma_threads(block_q: int, d: int, itemsize: int) -> int:
     """The mma kernel's threads: one warp per 16 query rows, at most
-    ``MMA_WARPS``."""
-    return 32 * min(-(-block_q // 16), MMA_WARPS)
+    :func:`mma_max_warps`."""
+    return 32 * min(-(-block_q // 16), mma_max_warps(d, itemsize))
 
 
 def _mma_row_words(d: int, itemsize: int) -> Tuple[int, int]:
@@ -151,7 +167,7 @@ def mma_stage_keys(block_q: int, block_k: int, d: int, itemsize: int) -> int:
     kc = mma_sub_keys(d)
     k_words, v_words = _mma_row_words(d, itemsize)
     whole = -(-block_k // kc) * kc
-    room = H100_SXM.smem_per_block - 4 * mma_threads(block_q) // 2 * k_words
+    room = H100_SXM.smem_per_block - 4 * mma_threads(block_q, d, itemsize) // 2 * k_words
     fit = room // (8 * (k_words + v_words)) // kc * kc
     return whole if whole <= fit else fit
 
@@ -164,7 +180,7 @@ def smem_bytes_mma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
     The launch and the resource model both call this."""
     k_words, v_words = _mma_row_words(d, itemsize)
     return 4 * (2 * mma_stage_keys(block_q, block_k, d, itemsize) * (k_words + v_words)
-                + mma_threads(block_q) // 2 * k_words)
+                + mma_threads(block_q, d, itemsize) // 2 * k_words)
 
 
 def smem_bytes_fma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
@@ -279,7 +295,7 @@ def _launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, block_q: int,
     if path == "wgmma":
         args = (*ints, scale, wgmma_threads(bq), smem_bytes_wgmma(bq, bk, d))
     elif path == "mma":
-        cfg = (ctypes.c_int * 14)(*ints, code, mma_threads(bq),
+        cfg = (ctypes.c_int * 14)(*ints, code, mma_threads(bq, d, itemsize),
                                   smem_bytes_mma(bq, bk, d, itemsize),
                                   mma_stage_keys(bq, bk, d, itemsize))
         args = (ctypes.addressof(cfg), scale)
@@ -327,7 +343,7 @@ def wgmma_attributes(d: int, block_q: int, block_k: int) -> Tuple[int, int]:
 def mma_attributes(d: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) the compiler gave the
     mma kernel at ``d``'s padded head dim; builds the library. Raises above
-    d = 128."""
+    d = 256."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     err = _build.library().flash_attention_mma_attributes(
         d, _build.DTYPE_CODES[dtype], ctypes.byref(regs), ctypes.byref(local))

@@ -132,10 +132,11 @@ def flash_mma_registers(d: int, itemsize: int) -> int:
     """Registers per thread the model gives flash attention's mma kernel,
     for feasibility and blocks per SM: q's two TF32 parts (DP, the padded
     head dim; DP/2 for f32 and above 64, where q is held in f32 and split
-    at each use), O (DP/2 f32), S (half the sub-tile's keys) and 40 for m,
-    l, B fragments, P's parts and addresses, rounded up to 8."""
+    at each use; none above 128, where q stays in shared memory), O (DP/2
+    f32), S (half the sub-tile's keys) and 40 for m, l, A and B fragments,
+    P's parts and addresses, rounded up to 8."""
     dp = _fa.mma_head_dim(d)
-    q_regs = dp if itemsize == 2 and dp <= 64 else dp / 2
+    q_regs = dp if itemsize == 2 and dp <= 64 else dp / 2 if dp <= 128 else 0
     return _round8(q_regs + dp / 2 + _fa.mma_sub_keys(d) / 2 + 40)
 
 
@@ -161,12 +162,16 @@ def vecmul_resources(L: int, block: int, itemsize: int = 4,
 
 def rmsnorm_resources(rows: int, d: int, block_rows: int, itemsize: int = 2,
                       dev: DeviceModel = H100_SXM) -> KernelResources:
-    n_blocks = max((rows + block_rows - 1) // block_rows, 1)
+    # each block reads its rows and w once, writes its rows once; the wide
+    # path takes one row a block and reads it a second time (from L2 where
+    # it is still there)
+    wide = _rn.path(d, itemsize) == "wide"
+    n_blocks = max(rows if wide else (rows + block_rows - 1) // block_rows, 1)
+    row_moves = 3 if wide else 2
     return _mk(
         "rmsnorm", smem=_rn.smem_bytes(d), threads=_rn.THREADS,
         n_blocks=n_blocks, flops=4 * rows * d,
-        # each block reads its rows and w once, writes its rows once
-        nbytes=(2 * rows * d + n_blocks * d) * itemsize,
+        nbytes=(row_moves * rows * d + n_blocks * d) * itemsize,
         aligned_mma=True,  # no matrix product
         aligned_vec=(d * itemsize) % 16 == 0,
         dev=dev, notes=f"rows={rows} d={d} block_rows={block_rows}",
@@ -205,7 +210,7 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
     elif route == "mma":
         # three TF32 products per product for f32, two for bf16 (K and V
         # exact in TF32)
-        threads, regs = _fa.mma_threads(bq), flash_mma_registers(d, itemsize)
+        threads, regs = _fa.mma_threads(bq, d, itemsize), flash_mma_registers(d, itemsize)
         launch = dict(smem=_fa.smem_bytes_mma(bq, bk, d, itemsize),
                       threads=threads,
                       regs=regs, peak=dev.peak_flops_tf32 / (3 if itemsize == 4 else 2))
@@ -300,8 +305,11 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
         feasible = _fits(smem, threads, dev)
         occupancy = blocks_per_sm(smem, threads, dev, regs)
     else:
-        tl, ps = _ssd.row_tile(L), max(_ssd.state_slice(dh), 1)
-        n_rt = L // tl
+        # where no tile fits, a stand-in of 8 keeps the model finite (the
+        # call is infeasible)
+        tl = _ssd.row_tile(L, N, dh) or 8
+        ps = _ssd.state_plan(L, N, dh)[1] or 8
+        n_rt = -(-L // tl)
         walked = n_rt * (n_rt + 1) // 2  # s tiles the row tiles of a chunk walk
         smem_i = _ssd.smem_bytes_intra(L, N, dh)
         smem_s = _ssd.smem_bytes_state(L, N, dh)
@@ -310,7 +318,7 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
             cumsum,
             # state walk + inter-chunk term: x, B, C, dt, cs read, y_inter
             # written in f32, the final state written
-            dict(smem=smem_s, threads=threads, n_blocks=b * nh * (dh // ps),
+            dict(smem=smem_s, threads=threads, n_blocks=b * nh * -(-dh // ps),
                  flops=4 * b * s * nh * dh * N + 2 * b * nc * nh * dh * N,
                  nbytes=(b * s * nh * dh * (itemsize + 4)
                          + b * s * (2 * N * itemsize + nh * (itemsize + 4))
@@ -325,8 +333,7 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
                                   + L * N * itemsize + L * nh * dh * (4 + itemsize))),
         ]
         smem = max(smem_i, smem_s)
-        feasible = (_ssd.supported(L, N, dh) and _fits(smem_i, threads, dev)
-                    and _fits(smem_s, threads, dev))
+        feasible = _ssd.supported(L, N, dh)
         regs = 0
         occupancy = blocks_per_sm(smem_i, threads, dev)
     times = [_launch_time(dev=dev, **k) for k in launches]

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/kernels/rmsnorm.py``. ``rmsnorm_cuda`` launches the
 hand-written Hopper kernel in ``csrc/rmsnorm.cu`` (one CUDA block per
-``block_rows`` rows, one warp per row) on the path :func:`path` picks;
+``block_rows`` rows, one warp per row; on the wide path one block per
+row, whatever ``block_rows``) on the path :func:`path` picks;
 ``rmsnorm_plain`` is the same function in plain torch over the same row
 tiles (pad rows to a multiple of ``block_rows``, normalise tile by tile,
 slice back).
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.device import H100_SXM
 from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/kernels/csrc/rmsnorm.cu"
@@ -24,17 +26,21 @@ THREADS = 512
 MAX_REGISTER_ROW_BYTES = 16 * 16 * 32
 
 #: the kernel's paths and their codes in ``csrc/rmsnorm.cu``
-PATH_CODES = {"scalar": 0, "two-pass": 1, "registers": 2}
+PATH_CODES = {"scalar": 0, "two-pass": 1, "registers": 2, "wide": 3}
 
 
 def path(d: int, itemsize: int, aligned: bool = True) -> str:
     """The kernel's path for rows of ``d`` elements, decided before the
-    launch: ``"registers"`` for rows of whole 16-byte vectors of at most
+    launch: ``"wide"`` for rows whose w in f32 (4 * d bytes) does not fit
+    a block's shared memory (one block a row, w read from device memory);
+    else ``"registers"`` for rows of whole 16-byte vectors of at most
     ``MAX_REGISTER_ROW_BYTES`` (the row stays in registers between the sum
     of squares and the write), ``"two-pass"`` for longer rows of whole
     vectors (the second read comes from L2), ``"scalar"`` when the rows
     are not whole vectors or a pointer is not 16-byte aligned."""
     row = d * itemsize
+    if 4 * d > H100_SXM.smem_per_block:
+        return "wide"
     if row % 16 or not aligned:
         return "scalar"
     return "registers" if row <= MAX_REGISTER_ROW_BYTES else "two-pass"
@@ -49,9 +55,10 @@ def vectors_per_lane(d: int, itemsize: int) -> int:
 
 
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory the kernel asks for: w in f32. The launch and
-    the resource model both call this."""
-    return 4 * d
+    """Dynamic shared memory the kernel asks for: w in f32, or none on the
+    wide path (rows whose w would not fit a block). The launch and the
+    resource model both call this."""
+    return 4 * d if 4 * d <= H100_SXM.smem_per_block else 0
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor) -> None:

@@ -32,7 +32,9 @@ chosen by :func:`route` before the launch, each after the chunk cumsum of
 * ``fma`` (``csrc/ssd_scan.cu``): what is left (dh or N above 128, a chunk
   above 256, f32 chunk tiles too large for a block, such as chunk 256 at
   mamba2-780m widths); the state walk with the inter-chunk term into an f32
-  y_inter scratch, then the intra-chunk term, on f32 FMAs.
+  y_inter scratch, then the intra-chunk term, on f32 FMAs, at tiles picked
+  for each call (:func:`row_tile`, :func:`state_plan`), so at any dh, N and
+  chunk.
 
 A failed build or launch raises; no route stands in for another.
 ``ssd_scan_plain`` computes the same function in plain torch over the same
@@ -46,6 +48,7 @@ the other two it rounds nowhere: the split keeps f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -194,56 +197,84 @@ def wgmma_ctas_per_sm(chunk: int, N: int, dh: int = 64) -> int:
     return 2 if _two_ctas_fit(chunk, N, dh) and ok else 1
 
 
-def row_tile(chunk: int) -> int:
-    """Rows of a chunk one intra block computes (the chunk's row tile)."""
-    return min(chunk, 64)
-
-
-def state_tile(chunk: int) -> int:
-    """Rows of a chunk the state kernel stages at a time (32 keeps two
-    blocks on an SM at mamba2-780m widths)."""
-    return min(chunk, 32)
-
-
-def state_slice(dh: int) -> int:
-    """Columns of dh one state block owns: the largest of 64, 32, 16, 8, 4
-    that divides dh (0 when none does: the kernel takes dh % 4 == 0)."""
-    return next((ps for ps in (64, 32, 16, 8, 4) if dh % ps == 0), 0)
+#: the FMA kernels' tile sizes, largest first: each call takes the largest
+#: row tile, and the largest state slice and state tile, whose blocks fit
+FMA_TILES = (64, 32, 16, 8)
+#: the state kernel's tile stops at 32 rows, which keeps two of its blocks on
+#: an SM at mamba2-780m widths
+FMA_STATE_TILES = (32, 16, 8)
 
 
 def _pad4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def _intra_bytes(chunk: int, N: int, dh: int, tl: int) -> int:
+    lt = -(-chunk // tl) * tl  # the chunk's rows, the last row tile padded
+    ldt, dhp = tl + 4, _pad4(dh)
+    stage = max(2 * N * ldt, tl * dhp + tl * ldt)
+    return 4 * (lt * ldt + tl * dhp + 2 * lt + stage)
+
+
+def _state_bytes(chunk: int, N: int, tq: int, ps: int) -> int:
+    np_ = _pad4(N)
+    return 4 * (N * (tq + 4) + tq * np_ + tq * ps + 2 * _pad4(chunk) + np_ * ps
+                + ps * (np_ + 4))
+
+
+@functools.lru_cache(maxsize=None)
+def row_tile(chunk: int, N: int, dh: int) -> int:
+    """Rows of a chunk one intra block computes: the largest of
+    ``FMA_TILES`` (at most the chunk rounded up to 4) whose block fits; a
+    chunk it does not divide ends in a masked row tile. 0 where none fits."""
+    return next((t for t in (min(c, _pad4(chunk)) for c in FMA_TILES)
+                 if _intra_bytes(chunk, N, dh, t) <= H100_SXM.smem_per_block), 0)
+
+
+@functools.lru_cache(maxsize=None)
+def state_plan(chunk: int, N: int, dh: int) -> Tuple[int, int]:
+    """(state tile, state slice) of the state kernel: the rows of a chunk it
+    stages at a time (the largest of ``FMA_STATE_TILES``, at most the chunk
+    rounded up to 4; a masked last tile where it does not divide the
+    chunk) and the columns of dh one block owns (the largest of
+    ``FMA_TILES``, at most dh rounded up to 4; a masked last slice), the
+    tile first, whose block fits. (0, 0) where none fits."""
+    for tq in (min(t, _pad4(chunk)) for t in FMA_STATE_TILES):
+        for ps in (min(p, _pad4(dh)) for p in FMA_TILES):
+            if _state_bytes(chunk, N, tq, ps) <= H100_SXM.smem_per_block:
+                return tq, ps
+    return 0, 0
+
+
 def smem_bytes_intra(chunk: int, N: int, dh: int) -> int:
-    """Dynamic shared memory of the intra kernel, in f32: C.B^T for the
-    row tile, s-major [chunk][tl+4]; the accumulator [tl][dh]; one head's
-    cumsum and dt [chunk] each; and a staging area that holds first C and B
-    tiles transposed, [N][tl+4] each, and later one head's dt*x tile
-    [tl][dh] and masked decay tile [tl][tl+4]. The launch and the resource
-    model call this."""
-    tl = row_tile(chunk)
-    ldt = tl + 4
-    stage = max(2 * N * ldt, tl * dh + tl * ldt)
-    return 4 * (chunk * ldt + tl * dh + 2 * _pad4(chunk) + stage)
+    """Dynamic shared memory of the intra kernel at its row tile tl, in
+    f32: C.B^T for the row tile, s-major [lt][tl+4] (lt the chunk's rows
+    padded to whole row tiles); the accumulator [tl][dh4] (dh padded to 4);
+    one head's cumsum and dt [lt] each; and a staging area that holds first
+    C and B tiles transposed, [N][tl+4] each, and later one head's dt*x tile
+    [tl][dh4] and masked decay tile [tl][tl+4]. 0 where no row tile fits.
+    The launch and the resource model call this."""
+    tl = row_tile(chunk, N, dh)
+    return _intra_bytes(chunk, N, dh, tl) if tl else 0
 
 
 def smem_bytes_state(chunk: int, N: int, dh: int) -> int:
-    """Dynamic shared memory of the state kernel, in f32: C rows transposed
-    [N][tq+4], B rows [tq][N], the weighted x tile [tq][ps], the chunk's
-    exp(cs) and row weights [chunk] each, the carried state transposed
-    [N][ps] and the chunk's own state [ps][N+4]."""
-    tq, ps = state_tile(chunk), state_slice(dh)
-    return 4 * (N * (tq + 4) + tq * N + tq * ps + 2 * _pad4(chunk) + N * ps
-                + ps * (N + 4))
+    """Dynamic shared memory of the state kernel at its state tile tq and
+    slice ps, in f32 (N4 is N padded to 4): C rows transposed [N][tq+4], B
+    rows [tq][N4], the weighted x tile [tq][ps], the chunk's exp(cs) and
+    row weights [chunk] each, the carried state transposed [N4][ps] and the
+    chunk's own state [ps][N4+4]. 0 where no plan fits."""
+    tq, ps = state_plan(chunk, N, dh)
+    return _state_bytes(chunk, N, tq, ps) if tq else 0
 
 
 def supported(chunk: int, N: int, dh: int) -> bool:
-    """Whether the kernels take these sizes: whole float4 rows (dh and N
-    multiples of 4) and a chunk that both kernels' row tiles divide: at most
-    32 rows, or 64, or a multiple of 64."""
-    return (dh % 4 == 0 and N % 4 == 0 and chunk % 4 == 0
-            and chunk % row_tile(chunk) == 0 and chunk % state_tile(chunk) == 0)
+    """Whether the FMA kernels take these sizes: any dh and N (padded to 4
+    inside the kernels) and any chunk whose smallest tiles fit a block
+    (every chunk up to about 3,500 rows at dh and N of 256; the Pallas
+    kernel holds an [L, L, nh] decay block, which a TPU's VMEM refuses far
+    below that)."""
+    return row_tile(chunk, N, dh) > 0 and state_plan(chunk, N, dh)[0] > 0
 
 
 def _chunk(x, dt, A, B, C, chunk: int) -> int:
@@ -336,9 +367,8 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
         raise ValueError("ssd_scan_cuda takes contiguous tensors")
     path = route(x.dtype, L, dh, N)
     if path == "fma" and not supported(L, N, dh):
-        raise ValueError(f"ssd_scan_cuda takes dh and N multiples of 4 and a "
-                         f"chunk of at most 32 (a multiple of 4), 64 or a "
-                         f"multiple of 64; got dh={dh}, N={N}, chunk={L}")
+        raise ValueError(f"ssd_scan_cuda: no tile of the FMA kernels fits a block "
+                         f"at dh={dh}, N={N}, chunk={L}")
     s0 = None
     if initial_state is not None:
         if tuple(initial_state.shape) != (b, nh, dh, N) or initial_state.device != dev:
@@ -367,7 +397,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
         y_inter = torch.empty(b, s, nh, dh, dtype=torch.float32, device=dev)
         err = lib.ssd_scan_launch(
             *ptrs, y_inter.data_ptr(), y.data_ptr(), S.data_ptr(), b, s, nh, dh, N,
-            L, row_tile(L), state_tile(L), state_slice(dh), code, THREADS,
+            L, row_tile(L, N, dh), *state_plan(L, N, dh), code, THREADS,
             smem_bytes_intra(L, N, dh), smem_bytes_state(L, N, dh),
             _build.stream_ptr(dev))
         _build.check("ssd_scan_launch", err)

@@ -32,7 +32,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 DEFAULT_RUNS = 3
 
@@ -257,12 +257,12 @@ def one_device_batch(arch: str, shape_name: str, plan, *, cfg, cell,
 
 
 def one_device_depth(arch: str, shape_name: str, *, artifact_dir: Path,
-                     run_name: str) -> Dict[str, Any]:
+                     run_name: str, max_layers: Optional[int] = None) -> Dict[str, Any]:
     """The deepest cut of ``arch`` at full width (``cut_config``, in whole
-    units: a layer, or a hybrid's group) whose one-device dry run of the
-    cell at global batch 1 under the baseline plan models at most
-    ``FIT_SHARE`` of the H100's memory per device (``_fit_on_one_card``,
-    its ``value`` returned as ``n_layers``)."""
+    units: a layer, or a hybrid's group), at most ``max_layers`` deep where
+    given, whose one-device dry run of the cell at global batch 1 under the
+    baseline plan models at most ``FIT_SHARE`` of the H100's memory per
+    device (``_fit_on_one_card``, its ``value`` returned as ``n_layers``)."""
     from repro_torch.configs import SHAPE_BY_NAME, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_campaign_mesh
@@ -271,7 +271,8 @@ def one_device_depth(arch: str, shape_name: str, *, artifact_dir: Path,
     unit = full.hybrid_attn_every or 1
     cell = dataclasses.replace(SHAPE_BY_NAME[shape_name], global_batch=1)
     mesh, _ = make_campaign_mesh("tiny", "cpu")
-    fit = _fit_on_one_card(list(range(unit, full.n_layers + 1, unit)), lambda n: dryrun.run_cell(
+    top = full.n_layers if max_layers is None else min(full.n_layers, max_layers)
+    fit = _fit_on_one_card(list(range(unit, top + 1, unit)), lambda n: dryrun.run_cell(
         arch, shape_name, mesh, f"{run_name}-l{n}", None, artifact_dir,
         cfg=cut_config(arch, n), cell=cell), "depth")
     if fit["status"] == "ok":

@@ -5,13 +5,16 @@ initial state at every chunk on the route each takes, the bf16 SSD scan on
 its wgmma route at every instantiated (chunk, N) over an odd number of
 chunks, the SSD scan on its mma route (f32 and bf16, chunks 32-256, odd dh
 and N, with and without an initial state) and on the FMA kernels at the
-sizes the mma kernel does not take, bf16 flash attention
+sizes the mma kernel does not take (N above 128, chunk 512, odd dh, N and
+chunks), bf16 flash attention
 on both of its routes and f32 flash attention on the mma route (its ring
-holding part of a tile where two whole ones do not fit; the FMA kernel
-above d = 128) with ``sq != sk``, ``q_offset``, odd K-tile walks and short
-query blocks at d = 64, 96 and 128, every full-width flash tile above 128
-rows or keys on ``wgmma`` and the shipped blocks through ``ops``, every
-rmsnorm path at an odd row count and every ``block_rows``, the oracle
+holding part of a tile where two whole ones do not fit) with ``sq != sk``,
+``q_offset``, odd K-tile walks and short query blocks at d = 64, 96 and
+128, heads of 160, 192 and 256 on the mma route at the smallest and the
+largest tile, the FMA kernel at d = 320 and 512, every full-width flash
+tile above 128 rows or keys on ``wgmma`` and the shipped blocks through
+``ops``, every rmsnorm path (wide rows included) at an odd row count and
+every ``block_rows``, the oracle
 gate, launch counting, refused launches, one DSE cell with measured
 rows on cuda, and a two-cell kernel campaign that resumes with no
 launch; and the dense model on the card: llama3-8b at full width with 2
@@ -190,21 +193,30 @@ def test_ssd_mma_matches_plain(dtype, dh, N, chunk, with_state, card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype,dh,N,chunk", [
     ("float32", 64, 128, 256),   # f32 chunk tiles of 256 rows do not fit a block
     ("float32", 32, 160, 64),    # N above 128
     ("bfloat16", 32, 160, 64),
+    ("float32", 128, 256, 256),  # a row tile of 32, where 64 would not fit
+    ("bfloat16", 96, 128, 512),  # a chunk above 256
+    ("float32", 30, 130, 96),    # dh and N padded to 4, a masked last row tile
+    ("bfloat16", 130, 30, 160),  # a masked last slice of dh
 ])
-def test_ssd_fma_takes_what_the_mma_kernel_cannot(dtype, dh, N, chunk, card):
+def test_ssd_fma_takes_what_the_mma_kernel_cannot(dtype, dh, N, chunk, with_state, card):
     shape = KernelShape("ssd_fma", "ssd_scan",
                         {"b": 1, "s": 2 * chunk, "nh": 2, "dh": dh, "N": N}, dtype)
     x, dt, A, B, C = conformance.make_inputs(shape, device=card)
+    gen = torch.Generator(device=card).manual_seed(dh + N + chunk)
+    init = (0.3 * torch.randn(1, 2, dh, N, generator=gen, device=card)
+            if with_state else None)
     assert ssd.route(x.dtype, chunk, dh, N) == "fma"
     before = _build.LAUNCHES["ssd_scan/fma"]
-    got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk)
+    got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=init)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["ssd_scan/fma"] == before + 1
-    agree = conformance.agree_with_plain(got, ssd_scan_plain(x, dt, A, B, C, chunk=chunk))
+    agree = conformance.agree_with_plain(
+        got, ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init))
     assert agree["passed"], agree
 
 
@@ -281,10 +293,36 @@ def test_flash_f32_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_flash_wide_heads_match_plain_on_mma(d, dtype, card):
+    # each instantiation above d 128 (q read from shared memory at each
+    # product) at the smallest and the largest tile, GQA, q_offset and both
+    # masks; f32 at d 256 runs 4 warps a block
+    gen = torch.Generator(device=card).manual_seed(d)
+    for sq, sk, bq, bk, q_offset, causal in [
+            (16, 32, 1, 1, 16, True), (512, 512, 512, 512, 0, True),
+            (512, 512, 512, 512, 0, False), (128, 320, 64, 64, 64, True),
+            (128, 256, 128, 128, -32, True), (1, 256, 1, 256, 255, True)]:
+        q, k, v = ((0.3 * torch.randn(2, s_, hh, d, generator=gen, device=card)).to(dtype)
+                   for s_, hh in ((sq, 4), (sk, 2), (sk, 2)))
+        assert fa.route(dtype, d, bq, bk) == "mma"
+        assert flash_attention_resources(2, sq, sk, 4, 2, d, bq, bk,
+                                         q.element_size()).feasible
+        kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
+        before = _build.LAUNCHES["flash_attention/mma"]
+        got = fa.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attention/mma"] == before + 1
+        agree = conformance.agree_with_plain(got, fa.flash_attention_plain(q, k, v, **kw))
+        assert agree["passed"], (sq, sk, kw, agree)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d,bq,bk", [
-    (torch.bfloat16, 192, 64, 64),   # d above 128
-    (torch.float32, 192, 64, 64),
-    (torch.float32, 160, 64, 64),
+    (torch.bfloat16, 320, 16, 16),   # d above 256
+    (torch.float32, 320, 16, 32),
+    (torch.float32, 512, 16, 16),
 ])
 def test_flash_fma_takes_what_the_mma_kernel_cannot(dtype, d, bq, bk, card):
     gen = torch.Generator(device=card).manual_seed(d + bk)
@@ -381,6 +419,8 @@ def test_flash_shipped_blocks_run_at_full_width(dtype, shape, route, card):
     (8193, 6144, torch.bfloat16, "two-pass"),
     (301, 100, torch.bfloat16, "scalar"),
     (173, 96, torch.float32, "registers"),
+    (37, 65_536, torch.bfloat16, "wide"),       # w in f32 would not fit a block
+    (19, 65_537, torch.float32, "wide"),        # and not whole vectors
 ])
 def test_rmsnorm_paths_match_plain(rows, d, dtype, kind, block_rows, card):
     gen = torch.Generator(device=card).manual_seed(rows + d)

@@ -20,12 +20,14 @@ from repro_torch.core.kernel_space import (KERNEL_SHAPE_BY_NAME, KernelShape,
                                            kernel_resources, tile_grid)
 from repro_torch.kernels import ops
 from repro_torch.kernels.conformance import PLAIN_REL, agree_with_plain, tolerance
+from repro_torch.kernels.resource_model import flash_attention_resources, flash_mma_registers
 from repro_torch.kernels.flash_attention import (MMA_D, NEG_INF, SOURCES,
                                                  WGMMA_BLOCKS, WGMMA_D, _flash_walk,
                                                  flash_attention_plain,
                                                  k_tiles_walked, mma_head_dim,
-                                                 mma_stage_keys, mma_sub_keys,
-                                                 mma_threads, route, smem_bytes_fma,
+                                                 mma_max_warps, mma_stage_keys,
+                                                 mma_sub_keys, mma_threads, route,
+                                                 smem_bytes_fma,
                                                  smem_bytes_mma, smem_bytes_wgmma,
                                                  wgmma_pass_rows, wgmma_sub_keys,
                                                  wgmma_threads)
@@ -66,6 +68,22 @@ def test_flash_plain_matches_pallas_with_q_offset(sq, sk, q_offset, causal):
     want = jops.flash_attention(qj, kj, vj, interpret=True, **kw)
     got = ops.flash_attention(qt, kt, vt, **kw)
     assert max_err(got, want) <= tolerance("flash_attention", "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 192, 256])
+@pytest.mark.parametrize("q_offset,causal", [(0, True), (64, True), (-32, True), (0, False)])
+def test_wide_heads_plain_matches_pallas(d, dtype, q_offset, causal):
+    # heads of 129-256 run on the mma kernel, whose plain version walks
+    # the same tiles: GQA (4 heads on 2), sq != sk, q_offset, both masks
+    rng = np.random.default_rng(d + q_offset)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, 1, 64, 128, 4, 2, d, dtype)
+    kw = dict(causal=causal, block_q=32, block_k=64, q_offset=q_offset)
+    assert route(qt.dtype, d, 32, 64) == "mma"
+    want = jops.flash_attention(qj, kj, vj, interpret=True, **kw)
+    got = flash_attention_plain(qt, kt, vt, **kw)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert max_err(got, want) <= tolerance("flash_attention", dtype)
 
 
 def test_fully_masked_rows_average_v_and_stay_finite():
@@ -121,9 +139,13 @@ def test_route_is_decided_by_dtype_head_dim_and_tile():
         for bk in WGMMA_BLOCKS:
             assert route(torch.float32, 128, bq, bk) == route(torch.float32, 16, bq, bk) == "mma"
     assert route(torch.float32, 64, 64, 256) == route(bf16, 96, 512, 512) == "mma"
-    # only d above 128 goes to the FMA kernel
-    assert route(bf16, 160, 64, 64) == route(torch.float32, 256, 1, 1) == "fma"
-    assert route(bf16, 129, 512, 512) == route(torch.float32, 192, 64, 64) == "fma"
+    # heads of 129-256 on the mma kernel too (no wgmma instantiation above
+    # 128); only d above 256 goes to the FMA kernel
+    assert route(bf16, 160, 64, 64) == route(torch.float32, 256, 1, 1) == "mma"
+    assert route(bf16, 129, 512, 512) == route(torch.float32, 192, 64, 64) == "mma"
+    assert route(bf16, 256, 512, 512) == route(bf16, 256, 128, 128) == "mma"
+    assert route(bf16, 257, 64, 64) == route(torch.float32, 320, 1, 1) == "fma"
+    assert route(bf16, 512, 512, 512) == "fma"
 
 
 def test_wgmma_dispatch_instantiates_exactly_the_routed_tiles():
@@ -264,39 +286,56 @@ def test_wgmma_model_counts_the_passes_and_sub_tiles_walked():
     assert walked == 528
 
 
-def test_fma_refuses_exactly_the_wide_heads_whose_tile_does_not_fit():
-    # above d = 128 the FMA kernel takes the call, and refuses a tile whose
-    # f32 accumulator, q and score tiles and one K/V stage pass a block; no
-    # configuration in the repo has heads wider than 128
-    refused, taken = set(), set()
-    for dtype in ("float32", "bfloat16"):
-        for d in (160, 192, 256):
-            for bq in (64, 128, 256, 512):
-                for bk in (64, 128, 256, 512):
-                    shape = KernelShape("attn_wide", "flash_attention",
-                                        {"b": 1, "sq": 512, "sk": 512, "h": 2, "kh": 1,
-                                         "d": d}, dtype)
-                    res = kernel_resources(shape, {"block_q": bq, "block_k": bk,
-                                                   "causal": True})
-                    assert res.route == "fma"
-                    itemsize = 4 if dtype == "float32" else 2
-                    assert res.feasible == (smem_bytes_fma(bq, bk, d, itemsize) <= 232_448)
-                    (taken if res.feasible else refused).add((dtype, d, bq, bk))
-    # of the 96 calls, these 7 launch and the other 89 are refused
-    assert taken == {("float32", 160, 64, 64), ("float32", 192, 64, 64),
-                     ("bfloat16", 160, 64, 64), ("bfloat16", 160, 64, 128),
-                     ("bfloat16", 192, 64, 64), ("bfloat16", 192, 64, 128),
-                     ("bfloat16", 256, 64, 64)}
-    assert len(refused) == 89 and not refused & taken
+WIDE_D = (160, 192, 256)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", WIDE_D)
+def test_every_wide_head_call_launches_on_the_mma_kernel(d, dtype):
+    # the 96 calls at d 160/192/256 with blocks 64-512 (16 a head dim and
+    # dtype here; the FMA kernel's one stage fits 7 of them): all run on the
+    # mma kernel, within a block's shared memory, its registers and its
+    # threads, and the resource model calls each feasible
+    itemsize = 4 if dtype == "float32" else 2
+    for bq in (64, 128, 256, 512):
+        for bk in (64, 128, 256, 512):
+            shape = KernelShape("attn_wide", "flash_attention",
+                                {"b": 1, "sq": 512, "sk": 512, "h": 2, "kh": 1, "d": d}, dtype)
+            res = kernel_resources(shape, {"block_q": bq, "block_k": bk, "causal": True})
+            assert res.route == "mma" == route(getattr(torch, dtype), d, bq, bk)
+            assert res.feasible, (dtype, d, bq, bk)
+            assert res.vmem_bytes == smem_bytes_mma(bq, bk, d, itemsize) <= 232_448
+            assert res.threads == mma_threads(bq, d, itemsize) <= 256
+            assert res.regs_per_thread <= 255
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_range", [(1, 64), (65, 128), (129, 192), (193, 256)])
+def test_every_call_up_to_d_256_is_feasible_on_its_route(d_range, dtype):
+    # d up to 256, block_q and block_k from 1 to 512: every call launches,
+    # on the route route() names, and the wrapper's launch plan is the
+    # model's (threads, shared memory)
+    itemsize = dtype.itemsize
+    blocks = (1, 16, 32, 64, 96, 128, 256, 512)
+    for d in range(d_range[0], d_range[1] + 1):
+        for bq in blocks:
+            for bk in blocks:
+                res = flash_attention_resources(1, bq, bk, 2, 1, d, bq, bk, itemsize)
+                assert res.feasible, (dtype, d, bq, bk, res.route)
+                assert res.route == route(dtype, d, bq, bk) != "fma"
+                if res.route == "mma":
+                    assert res.threads == mma_threads(bq, d, itemsize)
+                    assert res.vmem_bytes == smem_bytes_mma(bq, bk, d, itemsize)
 
 
 def test_every_tile_the_fma_kernel_took_still_launches():
     # a call that fits the FMA kernel's shared memory runs on the mma
     # kernel where that fits too, else on the FMA kernel: no such call is
-    # refused (d up to 256, block_q and block_k from 1 to 512)
+    # refused (d up to 512, block_q and block_k from 1 to 512); above d 256
+    # the FMA kernel takes exactly what it took
     blocks = (1, 16, 32, 64, 96, 128, 256, 512)
     for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
-        for d in (8, 16, 24, 64, 80, 96, 128, 160, 256):
+        for d in (8, 16, 24, 64, 80, 96, 128, 160, 256, 320, 512):
             for bq in blocks:
                 for bk in blocks:
                     if smem_bytes_fma(bq, bk, d, itemsize) > 232_448:
@@ -307,6 +346,7 @@ def test_every_tile_the_fma_kernel_took_still_launches():
                     res = kernel_resources(shape, {"block_q": bq, "block_k": bk, "causal": True})
                     assert res.feasible, (f32, d, bq, bk, res.route)
                     assert res.route == route(dtype, d, bq, bk)
+                    assert (res.route == "fma") == (d > 256)
 
 
 def test_wgmma_route_runs_at_the_tensor_core_rate():
@@ -344,18 +384,30 @@ def test_mma_shared_memory_threads_and_head_dims():
     assert smem_bytes_mma(64, 1, 32, 4) == smem_bytes_mma(64, 64, 32, 4)
     assert smem_bytes_mma(64, 1, 64, 4) == smem_bytes_mma(64, 32, 64, 4)
     assert smem_bytes_mma(64, 40, 128, 2) == smem_bytes_mma(64, 64, 128, 2)
-    assert [mma_threads(bq) for bq in (1, 16, 32, 48, 128, 256, 512)] == \
+    assert [mma_threads(bq, 128, 4) for bq in (1, 16, 32, 48, 128, 256, 512)] == \
         [32, 32, 64, 96, 256, 256, 256]
-    assert [mma_head_dim(d) for d in (1, 16, 24, 64, 80, 96, 112, 128, 129)] == \
-        [16, 16, 32, 64, 96, 96, 128, 128, 0]
-    assert MMA_D == (16, 32, 64, 96, 128)
+    assert [mma_head_dim(d) for d in (1, 16, 24, 64, 80, 96, 112, 128, 129, 192, 193,
+                                      256, 257)] == \
+        [16, 16, 32, 64, 96, 96, 128, 128, 160, 192, 256, 256, 0]
+    assert MMA_D == (16, 32, 64, 96, 128, 160, 192, 256)
     src = (Path(__file__).resolve().parents[1] / SOURCES["mma"]).read_text()
     cases = {int(m) for m in re.findall(r"^\s*FLASH_MMA_CASE\((\d+)\)", src, re.M)}
     assert cases == set(MMA_D)
-    # above d = 128 the FMA kernel takes the call
-    f32 = KernelShape("attn_d160", "flash_attention",
-                      {"b": 1, "sq": 64, "sk": 64, "h": 1, "kh": 1, "d": 160}, "float32")
-    res = kernel_resources(f32, {"block_q": 64, "block_k": 64, "causal": True})
+    # 8 warps a block up to d 192; f32 at d 256: 8 warps' q rows (128 x 264
+    # words) and two stages of one 32-key sub-tile (2 x 32 x (264 + 260)
+    # words) would pass a block, so 4 warps, 32 keys a stage
+    assert [mma_max_warps(d, 4) for d in MMA_D] == [8] * 7 + [4]
+    assert [mma_max_warps(d, 2) for d in MMA_D] == [8] * 8
+    assert mma_threads(512, 256, 4) == 128 and mma_threads(512, 256, 2) == 256
+    assert smem_bytes_mma(512, 512, 256, 4) == 4 * (2 * 32 * (264 + 260) + 64 * 264) == 201_728
+    assert smem_bytes_mma(512, 512, 256, 2) == 4 * (2 * 64 * (132 + 132) + 128 * 132)
+    # above d = 128 q stays in shared memory: O (d/2), S (16) and 40
+    assert [flash_mma_registers(d, 4) for d in (128, 160, 192, 256)] == [184, 136, 152, 184]
+    assert [flash_mma_registers(d, 2) for d in (160, 192, 256)] == [136, 152, 184]
+    # above d = 256 the FMA kernel takes the call
+    f32 = KernelShape("attn_d320", "flash_attention",
+                      {"b": 1, "sq": 64, "sk": 64, "h": 1, "kh": 1, "d": 320}, "float32")
+    res = kernel_resources(f32, {"block_q": 16, "block_k": 16, "causal": True})
     assert res.route == "fma" and res.feasible
 
 
@@ -365,14 +417,14 @@ def _whole_tile_smem_mma(bq, bk, d, itemsize):
     dp, kc = mma_head_dim(d), mma_sub_keys(d)
     kw = (dp + (8 - dp) % 32) if itemsize == 4 else (dp // 2 + (4 - dp // 2) % 16)
     vw = dp * itemsize // 4 + (4 - dp * itemsize // 4) % 16
-    return 4 * (2 * (-(-bk // kc) * kc) * (kw + vw) + mma_threads(bq) // 2 * kw)
+    return 4 * (2 * (-(-bk // kc) * kc) * (kw + vw) + mma_threads(bq, d, itemsize) // 2 * kw)
 
 
 def test_mma_ring_fits_a_block_at_every_tile_and_keeps_whole_tiles_where_they_fit():
     blocks = (1, 16, 32, 64, 96, 128, 192, 256, 320, 384, 512)
     n_whole = n_part = 0
     for itemsize in (4, 2):
-        for d in range(1, 129):
+        for d in range(1, 257):
             kc = mma_sub_keys(d)
             for bq in blocks:
                 for bk in blocks:
@@ -458,7 +510,7 @@ def test_split_tf32_holds_attn_s128_f32_to_its_plain_version(dims):
     assert agree["passed"] and agree["limit"] <= PLAIN_REL[torch.float32], agree
 
 
-@pytest.mark.parametrize("d", [16, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 64, 96, 128, 160, 192, 256])
 @pytest.mark.parametrize("q_offset,causal", [(0, True), (-32, True), (0, False)])
 def test_split_tf32_holds_each_head_dim_to_its_plain_version(d, q_offset, causal):
     # q_offset -32: the first 32 rows see no key and average V (-1e30 mask)

@@ -9,6 +9,7 @@ from repro.kernels import ops as jops
 from repro_torch.core.kernel_space import KERNEL_SHAPE_BY_NAME, KernelShape
 from repro_torch.kernels import ops
 from repro_torch.kernels.conformance import tolerance
+from repro_torch.kernels.resource_model import rmsnorm_resources
 from repro_torch.kernels.rmsnorm import (MAX_REGISTER_ROW_BYTES, path,
                                          rmsnorm_plain, smem_bytes,
                                          vectors_per_lane)
@@ -44,6 +45,31 @@ def test_ops_rmsnorm_flattens_leading_dims_like_the_reference():
 def test_rmsnorm_smem_is_w_in_f32():
     # one warp per row and no block reduction: only w stays in shared memory
     assert smem_bytes(4096) == 4 * 4096
+    # where it would not fit a block, the wide path asks for none
+    assert smem_bytes(58_112) == 232_448 and smem_bytes(58_113) == 0
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_every_row_width_up_to_131072_launches(itemsize):
+    # the rows the two-pass and scalar paths refused (w in f32 beyond a
+    # block, d above 58,112) go to the wide path; nothing is refused
+    for d in list(range(1, 131_073, 61)) + [58_112, 58_113, 65_536, 131_072]:
+        res = rmsnorm_resources(1024, d, 64, itemsize)
+        assert res.feasible and res.route == path(d, itemsize), d
+        assert res.vmem_bytes == smem_bytes(d) <= 232_448
+        assert (res.route == "wide") == (d > 58_112)
+
+
+@pytest.mark.parametrize("block_rows", [1, 2])
+def test_wide_rows_plain_matches_pallas(block_rows):
+    # 2 x 65,536: the wide path's rows, against the Pallas kernel
+    rng = np.random.default_rng(block_rows)
+    xj, xt = draw(rng, 2, 65_536)
+    wj, wt = draw(rng, 65_536)
+    assert path(65_536, 4) == "wide"
+    want = jops.rmsnorm(xj, wj, block_rows=block_rows, interpret=True)
+    got = rmsnorm_plain(xt, wt, block_rows=block_rows)
+    assert max_err(got, want) <= tolerance("rmsnorm", "float32")
 
 
 @pytest.mark.parametrize("d,itemsize,want,nv", [
@@ -53,10 +79,14 @@ def test_rmsnorm_smem_is_w_in_f32():
     (1536, 2, "registers", 8),
     (6144, 2, "two-pass", 32),   # 12 KB rows: second read from L2
     (100, 2, "scalar", 1),       # 200 B rows are not whole 16-byte vectors
+    (58_112, 4, "two-pass", 0),  # w in f32 fills a block's shared memory
+    (58_113, 2, "wide", 0),      # and no longer fits it: one row a block
+    (65_536, 2, "wide", 0),
+    (131_071, 4, "wide", 0),
 ])
 def test_rmsnorm_path_rule(d, itemsize, want, nv):
     assert path(d, itemsize) == want
-    assert path(d, itemsize, aligned=False) == "scalar"
+    assert path(d, itemsize, aligned=False) == ("wide" if want == "wide" else "scalar")
     if want == "registers":
         assert vectors_per_lane(d, itemsize) == nv
         assert nv * 32 * 16 >= d * itemsize

@@ -139,12 +139,16 @@ def test_ssd_resources_at_full_width():
     assert baseline_kernel_point(shape, KernelTemplate(shape)).dims == {"chunk": 256}
 
 
-@pytest.mark.parametrize("chunk,ok", [(16, True), (32, True), (36, False), (48, False),
-                                      (64, True), (96, False), (192, True)])
+@pytest.mark.parametrize("chunk,ok", [(16, True), (32, True), (36, True), (48, True),
+                                      (64, True), (96, True), (192, True)])
 def test_ssd_supported_agrees_with_the_launcher(chunk, ok):
-    # the launcher takes a chunk only when both row tiles (min(L, 64) for the
-    # intra kernel, min(L, 32) for the state kernel) divide it
-    launcher = chunk % min(chunk, 64) == 0 and chunk % min(chunk, 32) == 0
+    # the launcher takes tiles that are whole float4s (multiples of 4) and
+    # any chunk they fit: a chunk the row tile (at most 64 for the intra
+    # kernel) or the state tile (at most 32) does not divide ends in a
+    # masked tile, so 36, 48 and 96 launch too
+    tl, (tq, ps) = ssd.row_tile(chunk, 128, 64), ssd.state_plan(chunk, 128, 64)
+    assert (tl, tq, ps) == (min(chunk, 64), min(chunk, 32), 64)
+    launcher = all(t > 0 and t % 4 == 0 for t in (tl, tq, ps))
     assert ssd.supported(chunk, 128, 64) == launcher == ok
     # N 160 is above the mma kernel's 128: these calls take the FMA kernels
     assert ssd.route(torch.bfloat16, chunk, 64, 160) == "fma"
@@ -152,6 +156,64 @@ def test_ssd_supported_agrees_with_the_launcher(chunk, ok):
     # at N 128 the tensor-core routes take every one of these chunks
     res = ssd_scan_resources(1, 4 * chunk, 2, 64, 128, chunk)
     assert res.feasible and res.route in ("mma", "wgmma")
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("dh", [32, 64, 96, 128, 160, 256])
+def test_every_census_call_launches(dh, itemsize):
+    # dh x N 16-256 x chunk 32-512: at a fixed row tile of 64, 64 of these
+    # 360 calls would pass a block; each launches on its route, and on fma
+    # with tiles whose blocks fit
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    for N in (16, 64, 128, 160, 192, 256):
+        for chunk in (32, 64, 128, 256, 512):
+            res = ssd_scan_resources(1, 2 * chunk, 2, dh, N, chunk, itemsize=itemsize)
+            assert res.feasible and res.route == ssd.route(dtype, chunk, dh, N), (N, chunk)
+            if res.route == "fma":
+                assert 0 < ssd.smem_bytes_intra(chunk, N, dh) <= H100_SXM.smem_per_block
+                assert 0 < ssd.smem_bytes_state(chunk, N, dh) <= H100_SXM.smem_per_block
+    # dh 128, N 256, chunk 256 would ask 243,712 B at a row tile of 64: 32
+    assert ssd._intra_bytes(256, 256, 128, 64) == 243_712
+    assert ssd.row_tile(256, 256, 128) == 32
+    assert ssd._intra_bytes(512, 128, 96, 64) == 237_568 and ssd.row_tile(512, 128, 96) == 32
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("dh", [30, 64, 130])
+def test_every_odd_census_call_launches(dh, itemsize):
+    # odd sizes: dh and N not multiples of 4 (padded inside the kernels),
+    # chunks the row tile does not divide (a masked last tile)
+    dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
+    for N in (30, 64, 130, 160):
+        for chunk in (48, 96, 160, 192, 320):
+            res = ssd_scan_resources(1, 2 * chunk, 2, dh, N, chunk, itemsize=itemsize)
+            assert res.feasible and res.route == ssd.route(dtype, chunk, dh, N), (N, chunk)
+            if res.route == "fma":
+                tl, (tq, ps) = ssd.row_tile(chunk, N, dh), ssd.state_plan(chunk, N, dh)
+                assert tl % 4 == tq % 4 == ps % 4 == 0 and tl <= 64 and tq <= 32
+                assert ps <= -(-dh // 4) * 4 and tl <= -(-chunk // 4) * 4
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dh,N,chunk", [(16, 160, 64), (16, 256, 64), (16, 48, 512),
+                                        (30, 130, 96)])
+def test_fma_sizes_plain_matches_pallas(dh, N, chunk, with_state):
+    # the sizes only the FMA kernels take (N above 128, a chunk above 256;
+    # dh and N padded inside the kernel, a chunk the row tile does not
+    # divide), through their plain version, against the Pallas kernel
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(dh + N + chunk + with_state)
+    arrays = _np_inputs(rng, 1, 2 * chunk, 3, dh, N)
+    s0 = (0.3 * rng.standard_normal((1, 3, dh, N))).astype(np.float32) if with_state else None
+    assert ssd.route(torch.float32, chunk, dh, N) == "fma" and ssd.supported(chunk, N, dh)
+    jin, tin = _both(arrays)
+    want_y, want_s = jops.ssd_scan(*jin, chunk=chunk, interpret=True,
+                                   initial_state=None if s0 is None else jnp.asarray(s0))
+    y, st = ssd.ssd_scan_plain(*tin, chunk=chunk,
+                               initial_state=None if s0 is None else torch.from_numpy(s0))
+    assert y.shape == tin[0].shape and tuple(st.shape) == (1, 3, dh, N)
+    assert max_err(y, want_y) <= TOL and max_err(st, want_s) <= TOL
 
 
 def _drop_carried_state(x, dt, A, B, C, *, chunk, initial_state=None):
