@@ -19,11 +19,14 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    ``two-pass``, ``scalar`` or ``wide``), the others must be refused; then
    flash attention's card cases in bf16 and f32, each on the route
    ``flash_attention.route`` names (``sq != sk``, ``q_offset`` of 64, 0
-   and -32, non-causal, odd K-tile walks, d = 64, 96, 128, 160, 192 and
-   256, 512-, 256-, 32-row and one-row query blocks, K blocks of 256 and
-   512 keys: ``wgmma``'s passes and sub-tiles, ``mma``'s ring of partial
-   tiles and its heads above 128; d = 320 on the FMA kernel at tiles of 16
-   and 32 rows; each head dim above 128 must have run on its route only),
+   and -32, non-causal, odd K-tile walks, d = 64, 80 (bf16) or 96 (f32),
+   128, 160, 192 and 256, 512-, 256-, 32-row and one-row query blocks, K
+   blocks of 256 and 512 keys: ``wgmma``'s passes and sub-tiles and its
+   zero-padded head
+   dims, ``mma``'s ring of partial tiles and its heads above 128; d = 320
+   on the FMA kernel at tiles of 16 and 32 rows; each head dim must have
+   run on its routes only: f32 on ``mma``, bf16 on ``wgmma`` and at short
+   query blocks ``mma``),
    the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
    state size, with and without an initial state, five chunks of three
    heads), the SSD scan's on ``mma`` (f32 and bf16, chunks 32-256, dh/N
@@ -83,9 +86,12 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    SSD scan at zamba2-2.7b's widths (80 heads of 64, d_state 64) on ``wgmma``,
    held against its plain version and timed; then the routes the main
    path does not run, each against its plain version and timed beside its
-   bound and library call: flash attention on ``mma`` at Gemma 2 9B's
-   attention widths (16 heads, 8 KV heads, d 256, 4096 positions, causal,
-   (128, 128)) in bf16 and f32 with the compiled registers, on the FMA
+   bound and library call: flash attention on ``wgmma`` at head dims the
+   main path does not run, stablelm-3b's (32 heads, 32 KV heads, d 80
+   zero-padded to 128, 4096 positions, causal) at (512, 512) and
+   (128, 128) and Gemma 2 9B's (16 heads, 8 KV heads, d 256, 4096
+   positions, causal, (128, 128)) in bf16, and on ``mma`` at Gemma 2 9B's
+   in f32, each with the compiled registers and spilled bytes, on the FMA
    kernel at d 320, the SSD scan's FMA kernels at mamba2-780m widths with
    N 256 (chunk 256, bf16; each launch's time from the profiler), rmsnorm's
    wide path at 1024 x 65,536 bf16 and its two-pass and scalar paths at
@@ -257,7 +263,9 @@ It prints a JSON line of per-kernel results (``route`` is ``cuda``;
 ``kernel_route`` names the kernel's own route or path; a second route that
 the main path also launched has an entry of its own, ``<kernel>/<route>``;
 the routes it does not launch are listed, with the same keys and phase 4's
-sizes, under their kernel's entry as ``other_routes``),
+sizes, under their kernel's entry as ``other_routes``, and flash attention's
+``wgmma`` route at the head dims of phase 4 under ``head_dims``;
+``launches_by_route`` splits a kernel's main-path launches by its routes),
 ``launches`` sums the main-path runs (phase 3, the campaign, the Pareto
 cell, phase 7, phase 9 and phase 10, each counted from 0; the service's
 launches are those its kernel workers report; ``launches_by_path`` splits
@@ -1612,14 +1620,15 @@ def main() -> None:
         del inputs, variants
 
     # the flash cases: sq != sk, q_offset, non-causal, odd K-tile walks (5
-    # tiles of 64 against 2 stages) at d = 64 and 128 on wgmma (bf16), whose
+    # tiles of 64 against 2 stages) at d = 64-256 on wgmma (bf16), whose
     # 256- and 512-row tiles run in passes and 256- and 512-key tiles (320
-    # where the sequence is) in sub-tiles; d = 96, a 320-key tile and short
-    # query blocks (32 rows, one row) on the mma kernel, and f32 on it at
-    # every tile, its ring holding part of a tile where two whole ones do
-    # not fit; d = 160, 192 and 256 on the mma kernel too (q read from
-    # shared memory; f32 at 256 on 4 warps); d = 320 on the FMA kernel at
-    # tiles of 16 and 32 rows, where its one stage fits
+    # where the sequence is) in sub-tiles (d 80 zero-padded to 128, d 160
+    # and 192 to 256, sub-tiles of 64 keys above 128); a 320-key tile
+    # and short query blocks (32 rows, one row) on the mma kernel, and f32
+    # on it at every tile, its ring holding part of a tile where two whole
+    # ones do not fit, d = 160, 192 and 256 with q read from shared memory
+    # (f32 at 256 on 4 warps); d = 320 on the FMA kernel at tiles of 16 and
+    # 32 rows, where its one stage fits
     flash_cases = [(128, 256, 0, True), (128, 320, 64, True), (128, 256, -32, True),
                    (192, 320, 0, False), (256, 128, 0, True), (32, 256, 224, True),
                    (1, 256, 255, True), (512, 512, 64, True)]
@@ -1627,7 +1636,10 @@ def main() -> None:
         n_ok = 0
         worst = 0.0
         routes = {}
-        for d in (64, 96, 128, 160, 192, 256, 320):
+        # d 80 (bf16) and 96 (f32) each stand for the head dims padded to
+        # one instantiation: 72-120 on wgmma (to 128), 65-96 on mma (to 96)
+        flash_ds = (64, 80 if dtype == torch.bfloat16 else 96, 128, 160, 192, 256, 320)
+        for d in flash_ds:
             tiles = ([(16, 16), (32, 16)] if d > 256 else
                      [(bq, bk) for bq in (64, 128, 256, 512) for bk in fa.WGMMA_BLOCKS])
             for sq, sk, q_offset, causal in flash_cases:
@@ -1653,13 +1665,17 @@ def main() -> None:
                     routes.setdefault(d, {})
                     routes[d][key] = routes[d].get(key, 0) + 1
                     n_ok += 1
-        # every head dim above 128 launched the kernel route() names for it
-        for d in (160, 192, 256, 320):
-            want = "flash_attention/" + ("fma" if d > 256 else "mma")
-            if not routes.get(d, {}).get(want) or len(routes[d]) != 1:
-                fail(f"flash {dtype} d={d}: runs per route {routes.get(d)}, not all on {want}")
+        # each head dim launched the kernels route() names for it: f32 only
+        # mma (fma above 256); bf16 wgmma at the pools' tiles and mma at
+        # short query blocks (fma above 256)
+        for d in flash_ds:
+            want = ({"flash_attention/fma"} if d > 256 else {"flash_attention/mma"}
+                    if dtype == torch.float32 else
+                    {"flash_attention/wgmma", "flash_attention/mma"})
+            if set(routes.get(d, {})) != want:
+                fail(f"flash {dtype} d={d}: runs per route {routes.get(d)}, not on {want}")
         print(f"cases flash_attention {str(dtype).split('.')[1]}: {n_ok} runs (sq != sk, "
-              f"q_offset 64/0/-32, non-causal, odd walks, d 64/96/128/160/192/256/320, "
+              f"q_offset 64/0/-32, non-causal, odd walks, d {'/'.join(map(str, flash_ds))}, "
               f"block_q 512, 256, 32 and 1 query rows, block_k 512/320/256; d 320 at tiles "
               f"of 16 and 32 rows) agree with the plain version row by row (worst row "
               f"err/limit {worst:.3g}); runs per head dim and route {routes}", flush=True)
@@ -2213,15 +2229,18 @@ def main() -> None:
     # the routes the main path does not run, each at a size only it takes,
     # against its plain version and timed: flash attention at Gemma 2 9B's
     # attention widths (google/gemma-2-9b config.json: 16 heads, 8 KV
-    # heads, head_dim 256) on mma in bf16 and f32 and at d 320 on the FMA
-    # kernel; the SSD scan's FMA kernels at mamba2-780m widths with N 256;
-    # rmsnorm's wide path at 1024 x 65,536 and its two-pass and scalar paths
-    # at llama3-8b's rows. Each goes into the kernels line under its
-    # kernel's entry, "other_routes"
+    # heads, head_dim 256) on mma in f32 and at d 320 on the FMA kernel; the
+    # SSD scan's FMA kernels at mamba2-780m widths with N 256; rmsnorm's
+    # wide path at 1024 x 65,536 and its two-pass and scalar paths at
+    # llama3-8b's rows. Each goes into the kernels line under its kernel's
+    # entry, "other_routes". Flash attention's wgmma route at head dims the
+    # main path does not run (stablelm-3b's d 80, padded to 128; Gemma 2
+    # 9B's d 256 in bf16) goes under "head_dims"
     other_routes = {"flash_attention": [], "ssd_scan": [], "rmsnorm": []}
+    head_dims = []
 
     def other_route(kernel, route_name, shape_txt, run, plain, bound, lib, source, *,
-                    wrapper=True, **extra):
+                    wrapper=True, into=None, **extra):
         before = _build.LAUNCHES[f"{kernel}/{route_name}"]
         agree = conformance.agree_with_plain(run(), plain())
         launched = _build.LAUNCHES[f"{kernel}/{route_name}"] == before + wrapper
@@ -2236,7 +2255,7 @@ def main() -> None:
                  "launches": 0, "max_abs_err": agree["max_abs_err"], "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                  "library_ms": library_ms, **extra}
-        other_routes[kernel].append(entry)
+        (other_routes[kernel] if into is None else into).append(entry)
         lib_txt = f"{library_ms:.4f} ms" if library_ms is not None else "none"
         extra_txt = "".join(f", {k} {v}" for k, v in extra.items())
         print(f"time {kernel}/{route_name} {shape_txt}: kernel {ms:.4f} ms, plain "
@@ -2252,17 +2271,24 @@ def main() -> None:
             * itemsize / H100_SXM.hbm_bw
         return max(t_ops, t_bytes) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
+    # stablelm-3b's attention (src/repro_torch/configs/stablelm_3b.py: 32
+    # heads, 32 KV heads, d 80; zamba2-2.7b's is the same) and Gemma 2 9B's
+    gemma = {"b": 1, "sq": 4096, "sk": 4096, "h": 16, "kh": 8, "d": 256}
+    stablelm = {"b": 1, "sq": 4096, "sk": 4096, "h": 32, "kh": 32, "d": 80}
     for p, dtype_name, bq, bk in (
-            ({"b": 1, "sq": 4096, "sk": 4096, "h": 16, "kh": 8, "d": 256}, "bfloat16", 128, 128),
-            ({"b": 1, "sq": 4096, "sk": 4096, "h": 16, "kh": 8, "d": 256}, "float32", 128, 128),
+            (stablelm, "bfloat16", 512, 512), (stablelm, "bfloat16", 128, 128),
+            (gemma, "bfloat16", 128, 128), (gemma, "float32", 128, 128),
             ({"b": 1, "sq": 512, "sk": 512, "h": 16, "kh": 8, "d": 320}, "bfloat16", 32, 16)):
         shape = KernelShape("attn_wide", "flash_attention", p, dtype_name)
         q, k, v = conformance.make_inputs(shape, device=dev)
         qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         kw = dict(causal=True, block_q=bq, block_k=bk)
         route_name = fa.route(q.dtype, p["d"], bq, bk)
+        if (route_name == "wgmma") != (dtype_name == "bfloat16" and p["d"] <= 256):
+            fail(f"flash_attention at {p} {dtype_name} ({bq}, {bk}) on {route_name}")
         res = kernel_resources(shape, kw)
-        regs, local = fa.mma_attributes(p["d"], q.dtype) if route_name == "mma" else (0, 0)
+        regs, local = (fa.mma_attributes(p["d"], q.dtype) if route_name == "mma" else
+                       fa.wgmma_attributes(p["d"], bq, bk) if route_name == "wgmma" else (0, 0))
         other_route("flash_attention", route_name,
                     f"b{p['b']} s{p['sq']} h{p['h']} kh{p['kh']} d{p['d']} {dtype_name} "
                     f"causal ({bq}, {bk})",
@@ -2271,8 +2297,9 @@ def main() -> None:
                     flash_bound(p, dtype_name, True, q.element_size()),
                     lambda: F.scaled_dot_product_attention(  # noqa: B023
                         qh, kh_, vh, is_causal=True, enable_gqa=True),
-                    fa.SOURCES[route_name], threads=res.threads, smem=res.vmem_bytes,
-                    registers=regs, local_bytes=local)
+                    fa.SOURCES[route_name], into=head_dims if route_name == "wgmma" else None,
+                    threads=res.threads, smem=res.vmem_bytes, registers=regs,
+                    local_bytes=local)
         del q, k, v, qh, kh_, vh
 
     shape = KernelShape("ssd_mamba2_780m_n256_b8_s4096_bf16", "ssd_scan",
@@ -2343,11 +2370,22 @@ def main() -> None:
     for r in results:
         kernel, route = r["name"].split("/")[0], r["kernel_route"]
         r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel, route)
-    for kernel, entries in other_routes.items():
+    for kernel, entries in [*other_routes.items(), ("flash_attention", head_dims)]:
         for r in entries:
             r["launches"], r["launches_by_path"] = launches_of(path_counts, kernel,
                                                                r["kernel_route"])
+    for kernel, entries in other_routes.items():
         next(r for r in results if r["name"] == kernel)["other_routes"] = entries
+    next(r for r in results if r["name"] == "flash_attention")["head_dims"] = head_dims
+    # each kernel's main-path launches split by its routes
+    for kernel, names in (("flash_attention", ("wgmma", "mma", "fma")),
+                          ("ssd_scan", ("wgmma", "mma", "fma")),
+                          ("rmsnorm", ("registers", "two-pass", "scalar", "wide"))):
+        by_route = {n: launches_of(path_counts, kernel, n)[0] for n in names}
+        for r in results:
+            if r["name"].split("/")[0] == kernel:
+                r["launches_by_route"] = by_route
+        print(f"main-path launches of {kernel} by route: {by_route}", flush=True)
 
     print(json.dumps({"kernels": results}), flush=True)
     print(card, flush=True)

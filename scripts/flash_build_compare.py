@@ -7,19 +7,25 @@
 ``--save`` builds the kernels of the ``repro_torch`` that ``PYTHONPATH``
 names, runs ``flash_attention_cuda`` on inputs drawn on the card from a
 fixed seed per case, and saves the outputs, the routes and the times (CUDA
-events) to a file. The cases are the calls both builds take on the same
-kernel: the ``wgmma`` route at llama3-8b's widths (b 1, 4096 positions, 32
-heads, 8 KV heads, d 128, bf16) at its eight tiles of 64 and 128, causal
-and not, and the ``mma`` route where its two K/V stages hold whole tiles
-(f32 at d 16, 64 and 128, bf16 at d 32 and 96; 512 positions; and every
-tile of the campaign's f32 cell, ``attn_s128_f32``). The script of one
-checkout can save the other's build: ``PYTHONPATH`` picks the package. ``--compare`` prints
-each case's largest absolute difference between two saved files, and the
-times side by side. Run it as parent, change, change, parent in one call
-to hold the times to one card.
+events) to a file. The cases: the ``wgmma`` route at llama3-8b's widths
+(b 1, 4096 positions, 32 heads, 8 KV heads, d 128, bf16) at its eight
+tiles of 64 and 128, causal and not; the ``mma`` route where its two K/V
+stages hold whole tiles (f32 at d 16, 64 and 128, bf16 at d 32 and 96; 512
+positions; and every tile of the campaign's f32 cell, ``attn_s128_f32``);
+and bf16 at head dims that one build may route to ``mma`` and another to
+``wgmma``: stablelm-3b's attention widths (b 1, 4096 positions, 32 heads,
+32 KV heads, d 80) at (512, 512) and (128, 128) and Gemma 2 9B's (16
+heads, 8 KV heads, d 256) at (128, 128). The script of one checkout can
+save the other's build: ``PYTHONPATH`` picks the package. ``--compare``
+prints each case's routes in both files, its largest absolute difference
+and the times side by side, then the largest difference over the cases
+both files ran on the same route (which must be 0 where neither build
+changed that route's kernel) apart from the cases whose route differs. Run
+it as parent, change, change, parent in one call to hold the times to one
+card.
 
 Needs one card; each ``--save`` builds its checkout's kernels once (about
-20 s, reused by a second run of the same checkout) and runs for about 20 s.
+20 s, reused by a second run of the same checkout) and runs for about 30 s.
 """
 from __future__ import annotations
 
@@ -42,7 +48,11 @@ CASES = ([("bfloat16", 1, 4096, 32, 8, 128, bq, bk, causal)
                                     ("bfloat16", 32, ((32, 64), (128, 128))))
             for bq, bk in tiles for causal in (True, False)]
          + [("float32", 2, 128, 4, 4, 64, bq, bk, causal)  # attn_s128_f32
-            for bq in (64, 128) for bk in (64, 128) for causal in (True, False)])
+            for bq in (64, 128) for bk in (64, 128) for causal in (True, False)]
+         + [("bfloat16", 1, 4096, 32, 32, 80, 512, 512, causal)  # stablelm-3b
+            for causal in (True, False)]
+         + [("bfloat16", 1, 4096, 32, 32, 80, 128, 128, True),
+            ("bfloat16", 1, 4096, 16, 8, 256, 128, 128, True)])  # Gemma 2 9B
 
 
 def case_name(case) -> str:
@@ -95,14 +105,22 @@ def save(path: str) -> None:
 def compare(path_a: str, path_b: str) -> None:
     a, b = torch.load(path_a), torch.load(path_b)
     print(f"a: {a['source']} [{a['card']}]\nb: {b['source']} [{b['card']}]")
-    worst = 0.0
+    worst = {True: 0.0, False: 0.0}
+    count = {True: 0, False: 0}
     for name in a["outputs"]:
+        if name not in b["outputs"]:
+            continue
         oa, ob = a["outputs"][name].float(), b["outputs"][name].float()
         diff = (oa - ob).abs().max().item()
-        worst = max(worst, diff)
+        same = a["routes"][name] == b["routes"][name]
+        worst[same] = max(worst[same], diff)
+        count[same] += 1
         print(f"{name}: routes {a['routes'][name]} / {b['routes'][name]}, "
-              f"max|a - b| {diff:.3g}, {a['ms'][name]:.4f} / {b['ms'][name]:.4f} ms")
-    print(f"largest difference over {len(a['outputs'])} cases: {worst:.3g}")
+              f"max|a - b| {diff:.3g}, {a['ms'][name]:.4f} / {b['ms'][name]:.4f} ms "
+              f"(a / b {a['ms'][name] / b['ms'][name]:.3f})")
+    print(f"largest difference over the {count[True]} cases on the same route in both: "
+          f"{worst[True]:.3g}; over the {count[False]} whose route differs: "
+          f"{worst[False]:.3g}")
 
 
 def main() -> None:

@@ -158,6 +158,18 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// move this warpgroup's registers a thread to N (24..256, a multiple of 8):
+// a producer warpgroup gives registers back to the CTA's pool (dec) and the
+// consumer warpgroups take them (inc); every thread of the warpgroup runs it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // a barrier for the `count` threads of named barrier `id` (1..15; 0 is
 // __syncthreads), e.g. one warpgroup while the producer warp runs on
 __device__ __forceinline__ void named_sync(int id, int count) {

@@ -9,12 +9,14 @@ blocks are ``min(block, seq)`` and must divide the sequence.
 
 ``flash_attention_cuda`` launches one of three hand-written Hopper kernels
 (one CUDA block per (b*h, q tile)), chosen by :func:`route` before the
-launch: bf16 inputs at d = 64 or 128 with block_q and block_k in
-{64, 128, 256, 512} take ``csrc/flash_attention_wgmma.cu`` (``wgmma``
-products, TMA-fed K/V; a q tile above 128 rows runs in passes of 128, a K
-tile above 128 keys is walked in sub-tiles of 128); every other call up to
-d = 256 (f32; bf16 at another d, another tile or a sequence shorter than
-64) takes ``csrc/flash_attention.cu`` (``mma.sync`` TF32 products with
+launch: bf16 inputs at every d up to 256 that is a multiple of 8, with
+block_q and block_k in {64, 128, 256, 512}, take
+``csrc/flash_attention_wgmma.cu`` (``wgmma`` products, TMA-fed K/V; d
+zero-padded by TMA to 64, 128 or 256 (:func:`wgmma_head_dim`); a q tile
+above 128 rows runs in passes of 128, a K tile in sub-tiles of up to 128
+keys, 64 at d above 128); every other call up to d = 256 (f32; bf16 at a d
+that is not a multiple of 8, another tile or a sequence shorter than 64)
+takes ``csrc/flash_attention.cu`` (``mma.sync`` TF32 products with
 each operand split into two TF32 parts, three products per product for f32
 and two where the operand is bf16, which keeps f32 accuracy: plain TF32
 would not hold f32 to its plain version; its K/V ring holds whole tiles
@@ -60,16 +62,21 @@ MMA_WARPS = 8
 #: threads per CUDA block of the FMA kernel
 FMA_THREADS = 256
 
-#: head dims the wgmma kernel is instantiated for
-WGMMA_D = (64, 128)
+#: head dims the wgmma kernel is instantiated for; d (a multiple of 8) is
+#: zero-padded by TMA to the next of them (``padded_d`` in its source
+#: computes the same)
+WGMMA_D = (64, 128, 256)
 #: block_q and block_k it takes: a q tile runs in passes of
 #: ``min(block_q, WGMMA_MAX)`` rows and a K tile in sub-tiles of
-#: ``min(block_k, WGMMA_MAX)`` keys, the two template parameters beside d
+#: ``min(block_k, WGMMA_MAX)`` keys, or of at most ``WGMMA_WIDE_KEYS`` at
+#: DP 256; the pass, the sub-tile and DP are the template parameters
 #: (``FLASH_WGMMA_CASE`` in its source lists them); 256-key sub-tiles would
-#: take 128 + d/2 + 64 registers a thread for S, O and P alone, and 256-row
-#: passes would leave 544 threads 120 registers each
+#: take 128 + DP/2 + 64 registers a thread for S, O and P alone, 128-key
+#: sub-tiles at DP 256 would take 272 in all, and 256-row passes would leave
+#: 544 threads 120 registers each
 WGMMA_BLOCKS = (64, 128, 256, 512)
 WGMMA_MAX = 128
+WGMMA_WIDE_KEYS = 64
 
 #: K/V stages in the wgmma kernel's TMA ring
 WGMMA_STAGES = 2
@@ -78,13 +85,24 @@ WGMMA_STAGES = 2
 @functools.lru_cache(maxsize=None)
 def route(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     """Which kernel runs a call at the tile it runs (``min(block, seq)``),
-    decided before the launch: ``"wgmma"`` for bf16 at a head dim in
-    ``WGMMA_D`` and ``block_q``, ``block_k`` in ``WGMMA_BLOCKS``; else
-    ``"mma"`` where d is at most 256; else ``"fma"``."""
-    if (dtype == torch.bfloat16 and d in WGMMA_D and block_q in WGMMA_BLOCKS
+    decided before the launch: ``"wgmma"`` for bf16 at a head dim that
+    :func:`wgmma_head_dim` pads (a multiple of 8 up to 256) and
+    ``block_q``, ``block_k`` in ``WGMMA_BLOCKS``; else ``"mma"`` where d is
+    at most 256; else ``"fma"``."""
+    if (dtype == torch.bfloat16 and wgmma_head_dim(d) and block_q in WGMMA_BLOCKS
             and block_k in WGMMA_BLOCKS):
         return "wgmma"
     return "mma" if mma_head_dim(d) else "fma"
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_head_dim(d: int) -> int:
+    """The head dim the wgmma kernel pads ``d`` to (TMA fills the columns
+    from d up with zeros), 0 where it takes none: d must be a multiple of 8
+    (TMA's row strides are multiples of 16 bytes) and at most 256."""
+    if d <= 0 or d % 8:
+        return 0
+    return next((p for p in WGMMA_D if p >= d), 0)
 
 
 def wgmma_pass_rows(block_q: int) -> int:
@@ -92,25 +110,43 @@ def wgmma_pass_rows(block_q: int) -> int:
     return min(block_q, WGMMA_MAX)
 
 
-def wgmma_sub_keys(block_k: int) -> int:
-    """Keys of one K/V sub-tile of the wgmma kernel (a template parameter):
-    its online softmax and its rounding of P run once a sub-tile."""
-    return min(block_k, WGMMA_MAX)
+def wgmma_sub_keys(block_k: int, d: int) -> int:
+    """Keys of one K/V sub-tile of the wgmma kernel at head dim ``d`` (a
+    template parameter): its online softmax and its rounding of P run once
+    a sub-tile. At most 128, or 64 where d pads to 256 (O's 128 registers a
+    thread leave room for S of 64 keys)."""
+    return min(block_k, WGMMA_WIDE_KEYS if wgmma_head_dim(d) > 128 else WGMMA_MAX)
 
 
-def wgmma_threads(block_q: int) -> int:
+#: registers a thread of a consumer and of the producer warpgroup where the
+#: producer is a warpgroup (``CONSUMER_REGS`` and ``PRODUCER_REGS`` in the
+#: kernel's source): 2 x 128 x 232 + 128 x 40 = 64,512 of the SM's 65,536
+WGMMA_CONSUMER_REGS = 232
+WGMMA_PRODUCER_REGS = 40
+
+
+def wgmma_producer_threads(block_q: int, d: int) -> int:
+    """The wgmma kernel's producer threads: one warp, or at DP 256 with
+    passes of 128 rows a whole warpgroup, which gives its registers to the
+    two consumer warpgroups (``setmaxnreg``): 288 threads leave 168 a
+    thread as the compiler allocates them, and O alone takes 128."""
+    return 128 if wgmma_head_dim(d) > 128 and wgmma_pass_rows(block_q) > 64 else 32
+
+
+def wgmma_threads(block_q: int, d: int) -> int:
     """The wgmma kernel's threads: one consumer warpgroup per 64 rows of a
-    pass and one producer warp."""
-    return 128 * (wgmma_pass_rows(block_q) // 64) + 32
+    pass and the producer (:func:`wgmma_producer_threads`)."""
+    return 128 * (wgmma_pass_rows(block_q) // 64) + wgmma_producer_threads(block_q, d)
 
 
 def smem_bytes_wgmma(block_q: int, block_k: int, d: int) -> int:
     """Dynamic shared memory the wgmma kernel asks for: 1024 bytes of
     alignment slack, a pass's bf16 q rows, ``WGMMA_STAGES`` K and V
-    sub-tiles and the mbarriers (q full and empty, a full and an empty per
-    stage). The launch and the resource model both call this."""
-    qp, ks = wgmma_pass_rows(block_q), wgmma_sub_keys(block_k)
-    return 1024 + 2 * d * (qp + 2 * WGMMA_STAGES * ks) + 8 * (2 + 2 * WGMMA_STAGES)
+    sub-tiles, all at the padded head dim, and the mbarriers (q full and
+    empty, a full and an empty per stage). The launch and the resource
+    model both call this."""
+    qp, ks, dp = wgmma_pass_rows(block_q), wgmma_sub_keys(block_k, d), wgmma_head_dim(d)
+    return 1024 + 2 * dp * (qp + 2 * WGMMA_STAGES * ks) + 8 * (2 + 2 * WGMMA_STAGES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,10 +266,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, block_q: int = 512,
                           block_k: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Flash attention in plain torch over the kernel's tiles."""
     bq, bk = _blocks(q, k, v, block_q, block_k)
-    on_wgmma = route(q.dtype, q.shape[3], bq, bk) == "wgmma"
+    d = q.shape[3]
+    on_wgmma = route(q.dtype, d, bq, bk) == "wgmma"
     # the wgmma kernel runs its softmax once a sub-tile and takes P in bf16
     return _flash_walk(q, k, v, causal=causal, bq=bq, bk=bk, q_offset=q_offset,
-                       sub_k=wgmma_sub_keys(bk) if on_wgmma else bk, round_p=on_wgmma)
+                       sub_k=wgmma_sub_keys(bk, d) if on_wgmma else bk, round_p=on_wgmma)
 
 
 def _flash_walk(q, k, v, *, causal: bool, bq: int, bk: int, q_offset: int, sub_k: int,
@@ -293,7 +330,7 @@ def _launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, block_q: int,
     itemsize, code = dtype.itemsize, _build.DTYPE_CODES.get(dtype, -1)
     cfg = None
     if path == "wgmma":
-        args = (*ints, scale, wgmma_threads(bq), smem_bytes_wgmma(bq, bk, d))
+        args = (*ints, scale, wgmma_threads(bq, d), smem_bytes_wgmma(bq, bk, d))
     elif path == "mma":
         cfg = (ctypes.c_int * 14)(*ints, code, mma_threads(bq, d, itemsize),
                                   smem_bytes_mma(bq, bk, d, itemsize),
@@ -329,10 +366,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, block_q: int = 512,
 
 def wgmma_attributes(d: int, block_q: int, block_k: int) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) the compiler gave the
-    wgmma kernel's instantiation that a tile of ``block_q`` x ``block_k``
-    runs on (passes of :func:`wgmma_pass_rows`, sub-tiles of
-    :func:`wgmma_sub_keys`); builds the library. Raises for a tile the
-    route does not take."""
+    wgmma kernel's instantiation that a call at head dim ``d`` and a tile of
+    ``block_q`` x ``block_k`` runs on (:func:`wgmma_head_dim`, passes of
+    :func:`wgmma_pass_rows`, sub-tiles of :func:`wgmma_sub_keys`); builds
+    the library. Raises for a call the route does not take."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     err = _build.library().flash_attention_wgmma_attributes(
         d, block_q, block_k, ctypes.byref(regs), ctypes.byref(local))

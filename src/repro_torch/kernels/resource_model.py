@@ -120,12 +120,29 @@ def _round8(n: float) -> int:
 
 
 def flash_wgmma_registers(block_k: int, d: int) -> int:
-    """Registers per thread the model gives the wgmma kernel, for its
-    blocks per SM: S (half a sub-tile's keys, f32), O (d/2 f32), P in bf16
-    (a quarter of the sub-tile's keys) and 48 for addresses, m, l and the
-    loops, rounded up to 8 (block_q sets the thread count, not this)."""
-    ks = _fa.wgmma_sub_keys(block_k)
-    return _round8(ks / 2 + d / 2 + ks / 4 + 48)
+    """Registers per thread a consumer warpgroup of the wgmma kernel needs
+    in the model: S (half a sub-tile's keys, f32), O (DP/2 f32, DP the
+    padded head dim), P in bf16 (a quarter of the sub-tile's keys) and 48
+    for addresses, m, l and the loops, rounded up to 8: 224 at DP 256, whose
+    sub-tiles are 64 keys."""
+    ks, dp = _fa.wgmma_sub_keys(block_k, d), _fa.wgmma_head_dim(d)
+    return _round8(ks / 2 + dp / 2 + ks / 4 + 48)
+
+
+def flash_wgmma_launch_registers(block_q: int, block_k: int, d: int) -> int:
+    """Registers per thread the wgmma kernel launches with, for blocks per
+    SM: :func:`flash_wgmma_registers`, or where the producer is a
+    warpgroup that gives its registers to the consumers (``setmaxnreg``),
+    the CTA's mean of the consumers' need and the producer's
+    ``WGMMA_PRODUCER_REGS``, rounded up to 8 (168 at DP 256: the
+    compiler's count)."""
+    need = flash_wgmma_registers(block_k, d)
+    producer = _fa.wgmma_producer_threads(block_q, d)
+    if producer == 32:
+        return need
+    consumers = _fa.wgmma_threads(block_q, d) - producer
+    return _round8((need * consumers + _fa.WGMMA_PRODUCER_REGS * producer)
+                   / (consumers + producer))
 
 
 def flash_mma_registers(d: int, itemsize: int) -> int:
@@ -192,21 +209,25 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
     # the tiles the CTAs walk: their q tiles and K tiles, or on the wgmma
     # route the passes of every q tile and their K/V sub-tiles, each (with
     # causal) stopping after the last that its rows see
-    wq, wk = ((_fa.wgmma_pass_rows(bq), _fa.wgmma_sub_keys(bk)) if route == "wgmma"
+    wq, wk = ((_fa.wgmma_pass_rows(bq), _fa.wgmma_sub_keys(bk, d)) if route == "wgmma"
               else (block_q, block_k))
     walked = sum(_fa.k_tiles_walked(qt, wq, wk, sk, causal=causal, q_offset=q_offset)
                  for qt in range(max(sq // max(wq, 1), 1)))
     # every walked tile costs its full QK^T and PV: the kernel computes
-    # masked entries too
-    flops = b * h * walked * 4 * wq * wk * d
+    # masked entries too, and the wgmma kernel the zero-padded columns up to
+    # its head dim (the bytes are the call's own d: TMA reads no padding)
+    dw = _fa.wgmma_head_dim(d) if route == "wgmma" else d
+    flops = b * h * walked * 4 * wq * wk * dw
     nbytes = b * h * (2 * sq * d + walked * 2 * wk * d) * itemsize
     if route == "wgmma":
-        # registers set occupancy
-        launch = dict(smem=_fa.smem_bytes_wgmma(bq, bk, d),
-                      threads=_fa.wgmma_threads(bq),
-                      regs=flash_wgmma_registers(bk, d),
-                      peak=dev.peak_flops_bf16)
-        fits = True
+        # registers set occupancy; a consumer's need must fit what
+        # setmaxnreg gives it where the producer is a warpgroup
+        threads, regs = _fa.wgmma_threads(bq, d), flash_wgmma_launch_registers(bq, bk, d)
+        cap = (_fa.WGMMA_CONSUMER_REGS if _fa.wgmma_producer_threads(bq, d) == 128
+               else dev.max_regs_per_thread)
+        launch = dict(smem=_fa.smem_bytes_wgmma(bq, bk, d), threads=threads,
+                      regs=regs, peak=dev.peak_flops_bf16)
+        fits = flash_wgmma_registers(bk, d) <= cap and regs * threads <= dev.regs_per_sm
     elif route == "mma":
         # three TF32 products per product for f32, two for bf16 (K and V
         # exact in TF32)

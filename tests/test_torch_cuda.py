@@ -10,8 +10,10 @@ chunks), bf16 flash attention
 on both of its routes and f32 flash attention on the mma route (its ring
 holding part of a tile where two whole ones do not fit) with ``sq != sk``,
 ``q_offset``, odd K-tile walks and short query blocks at d = 64, 96 and
-128, heads of 160, 192 and 256 on the mma route at the smallest and the
-largest tile, the FMA kernel at d = 320 and 512, every full-width flash
+128, heads of 160, 192 and 256 at the smallest and the largest tile (f32
+and bf16 outside the pools on the mma route, bf16 in them on wgmma), bf16
+at d 80, 160, 192 and 256 on wgmma over every tile of the pools, the FMA
+kernel at d = 320 and 512, every full-width flash
 tile above 128 rows or keys on ``wgmma`` and the shipped blocks through
 ``ops``, every rmsnorm path (wide rows included) at an odd row count and
 every ``block_rows``, the oracle
@@ -249,7 +251,7 @@ def test_flash_bf16_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card
         if sq % bq_ or sk % bk_ or (bq > sq and bq != 64):
             continue
         key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
-        assert key.endswith("wgmma") == (d != 96 and sq >= 64 and bk_ in fa.WGMMA_BLOCKS)
+        assert key.endswith("wgmma") == (bq_ in fa.WGMMA_BLOCKS and bk_ in fa.WGMMA_BLOCKS)
         kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
         before = _build.LAUNCHES[key]
         got = fa.flash_attention_cuda(q, k, v, **kw)
@@ -296,9 +298,11 @@ def test_flash_f32_matches_plain_on_its_route(d, sq, sk, q_offset, causal, card)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [160, 192, 256])
 def test_flash_wide_heads_match_plain_on_mma(d, dtype, card):
-    # each instantiation above d 128 (q read from shared memory at each
-    # product) at the smallest and the largest tile, GQA, q_offset and both
-    # masks; f32 at d 256 runs 4 warps a block
+    # each head dim above 128 at the smallest and the largest tile, GQA,
+    # q_offset and both masks: f32 on the mma kernel (q read from shared
+    # memory at each product; 4 warps a block at d 256), bf16 on the mma
+    # kernel at tiles outside the pools and on the wgmma kernel (DP 256,
+    # sub-tiles of 64 keys) at tiles of the pools
     gen = torch.Generator(device=card).manual_seed(d)
     for sq, sk, bq, bk, q_offset, causal in [
             (16, 32, 1, 1, 16, True), (512, 512, 512, 512, 0, True),
@@ -306,16 +310,46 @@ def test_flash_wide_heads_match_plain_on_mma(d, dtype, card):
             (128, 256, 128, 128, -32, True), (1, 256, 1, 256, 255, True)]:
         q, k, v = ((0.3 * torch.randn(2, s_, hh, d, generator=gen, device=card)).to(dtype)
                    for s_, hh in ((sq, 4), (sk, 2), (sk, 2)))
-        assert fa.route(dtype, d, bq, bk) == "mma"
+        on_wgmma = (dtype == torch.bfloat16 and bq in fa.WGMMA_BLOCKS
+                    and bk in fa.WGMMA_BLOCKS)
+        key = "flash_attention/" + ("wgmma" if on_wgmma else "mma")
+        assert key == "flash_attention/" + fa.route(dtype, d, bq, bk)
         assert flash_attention_resources(2, sq, sk, 4, 2, d, bq, bk,
                                          q.element_size()).feasible
         kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
-        before = _build.LAUNCHES["flash_attention/mma"]
+        before = _build.LAUNCHES[key]
         got = fa.flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
-        assert _build.LAUNCHES["flash_attention/mma"] == before + 1
+        assert _build.LAUNCHES[key] == before + 1
         agree = conformance.agree_with_plain(got, fa.flash_attention_plain(q, k, v, **kw))
         assert agree["passed"], (sq, sk, kw, agree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [80, 160, 192, 256])
+def test_flash_padded_heads_match_plain_on_wgmma(d, causal, card):
+    # bf16 at d 80 (stablelm-3b's and zamba2-2.7b's heads; padded to 128)
+    # and 160-256 (padded to 256, sub-tiles of 64 keys) over every tile of
+    # the pools, GQA and a q_offset, each on the wgmma kernel and within
+    # PLAIN_REL of the plain version; the padded output columns are never
+    # written past d
+    gen = torch.Generator(device=card).manual_seed(d + causal)
+    q, k, v = ((0.3 * torch.randn(2, 512, hh, d, generator=gen, device=card)).to(torch.bfloat16)
+               for hh in (4, 2, 2))
+    for bq in fa.WGMMA_BLOCKS:
+        for bk in fa.WGMMA_BLOCKS:
+            assert fa.route(q.dtype, d, bq, bk) == "wgmma"
+            kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=64 if causal else 0)
+            before = _build.LAUNCHES["flash_attention/wgmma"]
+            got = fa.flash_attention_cuda(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["flash_attention/wgmma"] == before + 1
+            assert got.shape == q.shape and torch.isfinite(got).all()
+            agree = conformance.agree_with_plain(got, fa.flash_attention_plain(q, k, v, **kw))
+            assert agree["passed"], (bq, bk, agree)
+    regs, local = fa.wgmma_attributes(d, 128, 128)
+    assert 0 < regs <= 255 and regs * fa.wgmma_threads(128, d) <= 65_536 and local == 0
 
 
 @pytest.mark.cuda
@@ -340,9 +374,12 @@ def test_flash_fma_takes_what_the_mma_kernel_cannot(dtype, d, bq, bk, card):
 
 @pytest.mark.cuda
 def test_flash_wgmma_refuses_tiles_it_does_not_instantiate(card):
-    # the wrapper sends bf16 at d=96 to the mma kernel; the wgmma launcher
-    # itself refuses it, and a 192-row block (not a whole number of passes)
-    q = (0.3 * torch.randn(1, 384, 2, 96, device=card)).to(torch.bfloat16)
+    # the wrapper sends bf16 at d=100 (not a multiple of 8: TMA's row
+    # strides are multiples of 16 bytes) to the mma kernel; the wgmma
+    # launcher itself refuses it, d above 256, and a 192-row block (not a
+    # whole number of passes)
+    q = (0.3 * torch.randn(1, 384, 2, 100, device=card)).to(torch.bfloat16)
+    assert fa.route(q.dtype, 100, 128, 128) == "mma"
     before = _build.LAUNCHES["flash_attention/mma"]
     got = fa.flash_attention_cuda(q, q, q, block_q=128, block_k=128)
     assert _build.LAUNCHES["flash_attention/mma"] == before + 1
@@ -351,13 +388,19 @@ def test_flash_wgmma_refuses_tiles_it_does_not_instantiate(card):
     o = torch.empty_like(q)
     err = _build.library().flash_attention_wgmma_launch(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), o.data_ptr(), 1, 384, 384, 2, 2,
-        96, 128, 128, 1, 0, 96 ** -0.5, fa.wgmma_threads(128),
-        fa.smem_bytes_wgmma(128, 128, 96), _build.stream_ptr(card))
+        100, 128, 128, 1, 0, 100 ** -0.5, fa.wgmma_threads(128, 128),
+        fa.smem_bytes_wgmma(128, 128, 128), _build.stream_ptr(card))
+    assert err != 0
+    q264 = (0.3 * torch.randn(1, 384, 2, 264, device=card)).to(torch.bfloat16)
+    err = _build.library().flash_attention_wgmma_launch(
+        q264.data_ptr(), q264.data_ptr(), q264.data_ptr(), torch.empty_like(q264).data_ptr(),
+        1, 384, 384, 2, 2, 264, 128, 128, 1, 0, 264 ** -0.5, fa.wgmma_threads(128, 256),
+        232_448, _build.stream_ptr(card))
     assert err != 0
     q64 = q[..., :64].contiguous()
     err = _build.library().flash_attention_wgmma_launch(
         q64.data_ptr(), q64.data_ptr(), q64.data_ptr(), o.data_ptr(), 1, 384, 384, 2, 2,
-        64, 192, 128, 1, 0, 0.125, fa.wgmma_threads(192),
+        64, 192, 128, 1, 0, 0.125, fa.wgmma_threads(192, 64),
         fa.smem_bytes_wgmma(192, 128, 64), _build.stream_ptr(card))
     assert err != 0
 

@@ -4,6 +4,7 @@ with q_offset (kernel against kernel, never against the bottom-right
 aligned oracle); the mma route's split-TF32 arithmetic, emulated in plain
 torch, against the plain version; routes, shared memory and the resource
 model's feasible tiles."""
+import dataclasses
 import math
 import re
 from pathlib import Path
@@ -14,23 +15,28 @@ import torch
 from torch_parity import draw, grid_cases, max_err, tf32, tf32_product, tf32_truncate
 
 from repro.kernels import ops as jops
+from repro_torch.core.device import H100_SXM
 from repro_torch.core.design_space import (KernelPoint, KernelTemplate,
                                            baseline_kernel_point)
 from repro_torch.core.kernel_space import (KERNEL_SHAPE_BY_NAME, KernelShape,
                                            kernel_resources, tile_grid)
 from repro_torch.kernels import ops
 from repro_torch.kernels.conformance import PLAIN_REL, agree_with_plain, tolerance
-from repro_torch.kernels.resource_model import flash_attention_resources, flash_mma_registers
+from repro_torch.kernels.resource_model import (flash_attention_resources,
+                                                flash_mma_registers,
+                                                flash_wgmma_launch_registers,
+                                                flash_wgmma_registers)
 from repro_torch.kernels.flash_attention import (MMA_D, NEG_INF, SOURCES,
-                                                 WGMMA_BLOCKS, WGMMA_D, _flash_walk,
+                                                 WGMMA_BLOCKS, WGMMA_CONSUMER_REGS,
+                                                 WGMMA_D, WGMMA_PRODUCER_REGS, _flash_walk,
                                                  flash_attention_plain,
                                                  k_tiles_walked, mma_head_dim,
                                                  mma_max_warps, mma_stage_keys,
                                                  mma_sub_keys, mma_threads, route,
                                                  smem_bytes_fma,
                                                  smem_bytes_mma, smem_bytes_wgmma,
-                                                 wgmma_pass_rows, wgmma_sub_keys,
-                                                 wgmma_threads)
+                                                 wgmma_head_dim, wgmma_pass_rows,
+                                                 wgmma_sub_keys, wgmma_threads)
 
 SHAPES = [KERNEL_SHAPE_BY_NAME["attn_s128_f32"],
           KERNEL_SHAPE_BY_NAME["attn_s256_gqa_bf16"]]
@@ -86,6 +92,52 @@ def test_wide_heads_plain_matches_pallas(d, dtype, q_offset, causal):
     assert max_err(got, want) <= tolerance("flash_attention", dtype)
 
 
+@pytest.mark.parametrize("d", [16, 80, 96, 160, 192, 256])
+@pytest.mark.parametrize("q_offset,causal", [(0, True), (64, True), (-32, True), (0, False)])
+def test_padded_heads_plain_matches_pallas_on_wgmma(d, q_offset, causal):
+    # bf16 at any d up to 256 that is a multiple of 8 runs on the wgmma
+    # kernel (zero-padded to 64, 128 or 256; sub-tiles of 64 keys above
+    # 128), whose plain version walks its sub-tiles and rounds P to bf16:
+    # GQA (2 heads on 1), q_offset, both masks, under the reference's
+    # tolerance
+    rng = np.random.default_rng(1000 + d + q_offset)
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(rng, 1, 256, 256, 2, 1, d, "bfloat16")
+    kw = dict(causal=causal, block_q=64, block_k=128, q_offset=q_offset)
+    assert route(qt.dtype, d, 64, 128) == "wgmma"
+    want = jops.flash_attention(qj, kj, vj, interpret=True, **kw)
+    got = flash_attention_plain(qt, kt, vt, **kw)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    assert max_err(got, want) <= tolerance("flash_attention", "bfloat16")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_64_key_sub_tiles_move_the_plain_version_by_at_most_one_bf16_unit(causal):
+    # at d 256 the wgmma route walks sub-tiles of 64 keys and rounds P to
+    # bf16 once a sub-tile: against the same bf16 inputs with P.V in f32
+    # over whole tiles (the mma route's walk), and against whole tiles with
+    # P rounded, each element moves by at most one bf16 unit in the last
+    # place of its row's largest value
+    rng = np.random.default_rng(256 + causal)
+    (_, qt), (_, kt), (_, vt) = _qkv(rng, 1, 256, 256, 2, 1, 256, "bfloat16")
+    kw = dict(causal=causal, block_q=128, block_k=256)
+    assert wgmma_sub_keys(256, 256) == 64
+    sub = flash_attention_plain(qt, kt, vt, **kw).float()
+    whole = _flash_walk(qt, kt, vt, causal=causal, bq=128, bk=256, q_offset=0,
+                        sub_k=256, round_p=True).float()
+    p32 = flash_attention_plain(qt.float(), kt.float(), vt.float(),
+                                **kw).to(torch.bfloat16).float()
+    for other in (whole, p32):
+        row_max = torch.maximum(sub.abs(), other.abs()).amax(dim=-1, keepdim=True)
+        unit = torch.exp2(torch.floor(torch.log2(row_max)) - 7)
+        assert ((sub - other).abs() <= unit).all()
+        assert not torch.equal(sub, other)  # the sub-tiles and the rounding show
+    # at a block of 64 keys the walk is the whole tile's, bit for bit
+    kw64 = dict(causal=causal, block_q=128, block_k=64)
+    assert torch.equal(flash_attention_plain(qt, kt, vt, **kw64),
+                       _flash_walk(qt, kt, vt, causal=causal, bq=128, bk=64, q_offset=0,
+                                   sub_k=64, round_p=True))
+
+
 def test_fully_masked_rows_average_v_and_stay_finite():
     rng = np.random.default_rng(2)
     (_, qt), (_, kt), (_, vt) = _qkv(rng, 1, 32, 32, 2, 1, 16, "float32")
@@ -117,7 +169,62 @@ def test_flash_wgmma_smem_formula():
         for bk in (128, 256, 512):
             assert smem_bytes_wgmma(bq, bk, 128) == 164_912
     assert smem_bytes_wgmma(512, 64, 64) == smem_bytes_wgmma(128, 64, 64)
-    assert [wgmma_threads(bq) for bq in WGMMA_BLOCKS] == [160, 288, 288, 288]
+    assert [wgmma_threads(bq, 128) for bq in WGMMA_BLOCKS] == [160, 288, 288, 288]
+
+
+def test_wgmma_at_dp_256_fits_a_block():
+    # DP 256 walks sub-tiles of 64 keys: at passes of 128 rows a pass's q
+    # rows and two K and two V stages take 197,680 B; the producer is a
+    # warpgroup (384 threads) that gives its registers to the consumers
+    # (setmaxnreg): the model's 224 a consumer thread (S 32, O 128, P 16,
+    # 48) within their 232, the CTA launching at a mean of 168 (the
+    # compiler's count), one CTA an SM; d 136-248 pad to it and ask for the
+    # same. Passes of 64 rows keep one producer warp (160 threads)
+    assert smem_bytes_wgmma(128, 64, 256) == 1024 + 2 * 256 * (128 + 4 * 64) + 48 == 197_680
+    assert smem_bytes_wgmma(64, 64, 256) == 1024 + 2 * 256 * (64 + 4 * 64) + 48 == 164_912
+    for bq in (128, 256, 512):
+        for bk in WGMMA_BLOCKS:
+            for d in (136, 160, 192, 248, 256):
+                assert smem_bytes_wgmma(bq, bk, d) == 197_680 <= 232_448
+                assert wgmma_sub_keys(bk, d) == 64
+                assert flash_wgmma_registers(bk, d) == 224 <= WGMMA_CONSUMER_REGS
+                assert wgmma_threads(bq, d) == 384
+                assert flash_wgmma_launch_registers(bq, bk, d) == 168
+    assert 2 * 128 * WGMMA_CONSUMER_REGS + 128 * WGMMA_PRODUCER_REGS == 64_512 <= 65_536
+    assert 168 * 384 <= 65_536
+    assert wgmma_threads(64, 256) == 160 and flash_wgmma_launch_registers(64, 64, 256) == 224
+    # d up to 128 keeps one producer warp at every pass
+    assert flash_wgmma_launch_registers(128, 128, 128) == 208
+    # 128-key sub-tiles at DP 256 would take 272 registers a thread
+    assert 128 / 2 + 256 / 2 + 128 / 4 + 48 == 272 > 255
+    # d up to 128 keeps its instantiations: d 72-120 pad to 128, 8-56 to 64
+    assert smem_bytes_wgmma(128, 128, 80) == smem_bytes_wgmma(128, 128, 128) == 164_912
+    assert smem_bytes_wgmma(64, 64, 16) == smem_bytes_wgmma(64, 64, 64)
+    assert [flash_wgmma_registers(128, d) for d in (16, 64, 80, 128)] == [176, 176, 208, 208]
+    assert [wgmma_sub_keys(512, d) for d in (8, 64, 80, 128, 136, 256)] == \
+        [128, 128, 128, 128, 64, 64]
+    # the resource model: one CTA an SM at Gemma 2 9B's widths, feasible
+    res = flash_attention_resources(1, 4096, 4096, 16, 8, 256, 128, 128, 2)
+    assert (res.route, res.feasible, res.threads, res.blocks_per_sm) == ("wgmma", True, 384, 1)
+    assert res.regs_per_thread == 168 and res.vmem_bytes == 197_680
+
+
+def test_wgmma_model_counts_the_padded_head_dim():
+    # d 80 pads to 128: the products do 1.6x the work of d 80, d 128's
+    # work; the bytes are d 80's (TMA reads no padding). The model counts
+    # each walked K/V sub-tile's bytes from device memory, so at 128-row
+    # passes it is bound by bytes; with the bytes free, by the padded work
+    def model(d, dev=H100_SXM):
+        return flash_attention_resources(1, 4096, 4096, 32, 32, d, 128, 128, 2, dev)
+
+    d80, d128 = model(80), model(128)
+    assert d80.route == d128.route == "wgmma"
+    assert d80.est_latency_us == pytest.approx(d128.est_latency_us * 80 / 128)
+    free = dataclasses.replace(H100_SXM, hbm_bw=1e30)
+    assert model(80, free).est_latency_us == pytest.approx(model(128, free).est_latency_us)
+    assert d80.vmem_bytes == d128.vmem_bytes and d80.threads == d128.threads
+    f32 = flash_attention_resources(1, 4096, 4096, 32, 32, 80, 128, 128, 4)
+    assert f32.route == "mma" and f32.feasible
 
 
 def test_route_is_decided_by_dtype_head_dim_and_tile():
@@ -126,10 +233,17 @@ def test_route_is_decided_by_dtype_head_dim_and_tile():
     for bq in WGMMA_BLOCKS:
         for bk in WGMMA_BLOCKS:
             assert route(bf16, 128, bq, bk) == route(bf16, 64, bq, bk) == "wgmma"
-    assert route(bf16, 96, 64, 64) == "mma"  # no wgmma instantiation at d=96
+            # every d up to 256 that is a multiple of 8, padded by TMA
+            for d in range(8, 257, 8):
+                assert route(bf16, d, bq, bk) == "wgmma", (d, bq, bk)
+    assert route(bf16, 96, 64, 64) == route(bf16, 80, 512, 512) == "wgmma"
+    assert route(bf16, 100, 64, 64) == route(bf16, 81, 128, 128) == "mma"  # d % 8 != 0
     assert route(bf16, 64, 64, 320) == route(bf16, 64, 192, 64) == "mma"  # other tiles
     assert route(bf16, 128, 32, 64) == route(bf16, 128, 1, 64) == "mma"  # short q
     assert route(bf16, 128, 64, 1024) == "mma"
+    assert [wgmma_head_dim(d) for d in (8, 16, 64, 72, 80, 128, 136, 160, 192, 256, 264,
+                                        81, 0)] == \
+        [64, 64, 64, 128, 128, 128, 256, 256, 256, 256, 0, 0, 0]
     # f32 goes to mma.sync with each operand split into two TF32 parts
     # (three products a product): one TF32 product would break PLAIN_REL
     # (test_one_tf32_product_would_not_hold_f32_to_its_plain_version),
@@ -137,28 +251,54 @@ def test_route_is_decided_by_dtype_head_dim_and_tile():
     # not fit a block
     for bq in WGMMA_BLOCKS:
         for bk in WGMMA_BLOCKS:
-            assert route(torch.float32, 128, bq, bk) == route(torch.float32, 16, bq, bk) == "mma"
-    assert route(torch.float32, 64, 64, 256) == route(bf16, 96, 512, 512) == "mma"
-    # heads of 129-256 on the mma kernel too (no wgmma instantiation above
-    # 128); only d above 256 goes to the FMA kernel
-    assert route(bf16, 160, 64, 64) == route(torch.float32, 256, 1, 1) == "mma"
+            for d in (16, 80, 128, 160, 256):
+                assert route(torch.float32, d, bq, bk) == "mma"
+    assert route(torch.float32, 64, 64, 256) == route(bf16, 100, 512, 512) == "mma"
+    # heads of 129-256 on the wgmma kernel in bf16 at the pools' tiles (DP
+    # 256), on the mma kernel in f32, at other tiles or a d not a multiple
+    # of 8; only d above 256 goes to the FMA kernel
+    assert route(bf16, 160, 64, 64) == route(bf16, 256, 512, 512) == "wgmma"
+    assert route(bf16, 136, 128, 128) == route(bf16, 192, 64, 512) == "wgmma"
+    assert route(bf16, 160, 32, 64) == route(torch.float32, 256, 1, 1) == "mma"
     assert route(bf16, 129, 512, 512) == route(torch.float32, 192, 64, 64) == "mma"
-    assert route(bf16, 256, 512, 512) == route(bf16, 256, 128, 128) == "mma"
+    assert route(torch.float32, 256, 512, 512) == route(bf16, 256, 1, 256) == "mma"
     assert route(bf16, 257, 64, 64) == route(torch.float32, 320, 1, 1) == "fma"
-    assert route(bf16, 512, 512, 512) == "fma"
+    assert route(bf16, 264, 64, 64) == route(bf16, 512, 512, 512) == "fma"
 
 
 def test_wgmma_dispatch_instantiates_exactly_the_routed_tiles():
-    # eight instantiations: d, the pass and the sub-tile; every routed tile
-    # runs on the one its pass and sub-tile name, and each divides its block
-    src = (Path(__file__).resolve().parents[1] / SOURCES["wgmma"]).read_text()
+    # ten (padded d, pass, sub-tile) cases (64 keys at most at DP 256);
+    # every routed call runs on the one its padded head dim, pass and
+    # sub-tile name, and each divides its block
+    root = Path(__file__).resolve().parents[1]
+    src = (root / SOURCES["wgmma"]).read_text()
     cases = {tuple(map(int, m)) for m in
              re.findall(r"^\s*FLASH_WGMMA_CASE\((\d+), (\d+), (\d+)\)", src, re.M)}
-    routed = {(d, wgmma_pass_rows(bq), wgmma_sub_keys(bk)) for d in WGMMA_D
-              for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS}
-    assert cases == routed and len(cases) == 8
-    assert all(bq % wgmma_pass_rows(bq) == 0 and bk % wgmma_sub_keys(bk) == 0
-               for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS)
+    routed = {(wgmma_head_dim(d), wgmma_pass_rows(bq), wgmma_sub_keys(bk, d))
+              for d in range(8, 257, 8) for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS}
+    assert cases == routed and len(cases) == 10
+    assert {dp for dp, _, _ in cases} == set(WGMMA_D) == {64, 128, 256}
+    assert all(bq % wgmma_pass_rows(bq) == 0 and bk % wgmma_sub_keys(bk, d) == 0
+               for d in WGMMA_D for bq in WGMMA_BLOCKS for bk in WGMMA_BLOCKS)
+    # each case is instantiated once for d == DP and once for d < DP (the
+    # padded epilogue): d 64 and 128 beside the dispatch, d below 64 and
+    # 65-120 in a unit of their own, DP 256 in another (built in parallel),
+    # those two declared extern beside the dispatch
+    made = re.compile(r"^FLASH_WGMMA_INSTANCES\((extern)?, (\d+), (\d+), (\d+), (true|false)\)",
+                      re.M)
+
+    def instances(text, extern=""):
+        return {(int(a), int(b), int(c), p == "true") for e, a, b, c, p in made.findall(text)
+                if e == extern}
+
+    here = instances(src)
+    units = [instances((root / SOURCES["wgmma"].replace(".cu", f"_{u}.cu")).read_text())
+             for u in ("padded", "wide")]
+    assert here == {c + (False,) for c in cases if c[0] <= 128}
+    assert units[0] == {c + (True,) for c in cases if c[0] <= 128}
+    assert units[1] == {c + (p,) for c in cases if c[0] == 256 for p in (False, True)}
+    assert instances(src, "extern") == units[0] | units[1]
+    assert len(here | units[0] | units[1]) == 20
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -293,28 +433,37 @@ WIDE_D = (160, 192, 256)
 @pytest.mark.parametrize("d", WIDE_D)
 def test_every_wide_head_call_launches_on_the_mma_kernel(d, dtype):
     # the 96 calls at d 160/192/256 with blocks 64-512 (16 a head dim and
-    # dtype here; the FMA kernel's one stage fits 7 of them): all run on the
-    # mma kernel, within a block's shared memory, its registers and its
+    # dtype here; the FMA kernel's one stage fits 7 of them): f32 runs on
+    # the mma kernel, bf16 on the wgmma kernel at DP 256 (sub-tiles of 64
+    # keys), each within a block's shared memory, its registers and its
     # threads, and the resource model calls each feasible
     itemsize = 4 if dtype == "float32" else 2
+    want = "mma" if dtype == "float32" else "wgmma"
     for bq in (64, 128, 256, 512):
         for bk in (64, 128, 256, 512):
             shape = KernelShape("attn_wide", "flash_attention",
                                 {"b": 1, "sq": 512, "sk": 512, "h": 2, "kh": 1, "d": d}, dtype)
             res = kernel_resources(shape, {"block_q": bq, "block_k": bk, "causal": True})
-            assert res.route == "mma" == route(getattr(torch, dtype), d, bq, bk)
+            assert res.route == want == route(getattr(torch, dtype), d, bq, bk)
             assert res.feasible, (dtype, d, bq, bk)
-            assert res.vmem_bytes == smem_bytes_mma(bq, bk, d, itemsize) <= 232_448
-            assert res.threads == mma_threads(bq, d, itemsize) <= 256
-            assert res.regs_per_thread <= 255
+            if want == "mma":
+                assert res.vmem_bytes == smem_bytes_mma(bq, bk, d, itemsize) <= 232_448
+                assert res.threads == mma_threads(bq, d, itemsize) <= 256
+                assert res.regs_per_thread <= 255
+            else:
+                assert res.vmem_bytes == smem_bytes_wgmma(bq, bk, d) <= 232_448
+                assert res.threads == wgmma_threads(bq, d) <= 384
+                assert res.regs_per_thread == (224 if bq == 64 else 168)
+                assert res.regs_per_thread * res.threads <= 65_536
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d_range", [(1, 64), (65, 128), (129, 192), (193, 256)])
 def test_every_call_up_to_d_256_is_feasible_on_its_route(d_range, dtype):
     # d up to 256, block_q and block_k from 1 to 512: every call launches,
-    # on the route route() names, and the wrapper's launch plan is the
-    # model's (threads, shared memory)
+    # on the route route() names (bf16 at a d that is a multiple of 8 and a
+    # tile of the pools on wgmma, the rest on mma), and the wrapper's launch
+    # plan is the model's (threads, shared memory)
     itemsize = dtype.itemsize
     blocks = (1, 16, 32, 64, 96, 128, 256, 512)
     for d in range(d_range[0], d_range[1] + 1):
@@ -323,9 +472,15 @@ def test_every_call_up_to_d_256_is_feasible_on_its_route(d_range, dtype):
                 res = flash_attention_resources(1, bq, bk, 2, 1, d, bq, bk, itemsize)
                 assert res.feasible, (dtype, d, bq, bk, res.route)
                 assert res.route == route(dtype, d, bq, bk) != "fma"
+                on_wgmma = (dtype == torch.bfloat16 and d % 8 == 0
+                            and bq in WGMMA_BLOCKS and bk in WGMMA_BLOCKS)
+                assert (res.route == "wgmma") == on_wgmma
                 if res.route == "mma":
                     assert res.threads == mma_threads(bq, d, itemsize)
                     assert res.vmem_bytes == smem_bytes_mma(bq, bk, d, itemsize)
+                else:
+                    assert res.threads == wgmma_threads(bq, d)
+                    assert res.vmem_bytes == smem_bytes_wgmma(bq, bk, d) <= 232_448
 
 
 def test_every_tile_the_fma_kernel_took_still_launches():
