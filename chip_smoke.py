@@ -24,15 +24,16 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    blocks of 256 and 512 keys: ``wgmma``'s passes and sub-tiles and its
    zero-padded head
    dims, ``mma``'s ring of partial tiles and its heads above 128; d = 320
-   on the FMA kernel at tiles of 16 and 32 rows; each head dim must have
-   run on its routes only: f32 on ``mma``, bf16 on ``wgmma`` and at short
-   query blocks ``mma``),
+   and 512 on ``mma``'s split kernel at tiles of 16-128 rows; each head
+   dim must have run on its routes only: f32 and d above 256 on ``mma``,
+   bf16 on ``wgmma`` and at short query blocks ``mma``),
    the bf16 SSD scan's on ``wgmma`` (every instantiated chunk and
    state size, with and without an initial state, five chunks of three
    heads), the SSD scan's on ``mma`` (f32 and bf16, chunks 32-256, dh/N
-   24/40, 32/48 and 64/128, with and without an initial state) and on the
-   FMA kernels at the sizes ``mma`` does not take (f32 chunk tiles beyond a
-   block, N 160-256, dh 256, chunk 512, odd dh, N and chunks), and rmsnorm
+   24/40, 32/48 and 64/128, with and without an initial state), its
+   streamed kernel at the sizes the whole-chunk kernel does not take (f32
+   chunk tiles beyond a block, N 160-256, dh 256, chunk 512, odd dh, N and
+   chunks) and the FMA kernels at N 384, and rmsnorm
    at 8193 x 4096 and wider rows (65,536 and 65,537 on the wide path) on
    every path and ``block_rows``;
 3. the main path, ``repro_torch.launch.dse`` once per kernel on its
@@ -91,9 +92,12 @@ Run from the root of a checkout on a machine with an H100 (the build needs
    zero-padded to 128, 4096 positions, causal) at (512, 512) and
    (128, 128) and Gemma 2 9B's (16 heads, 8 KV heads, d 256, 4096
    positions, causal, (128, 128)) in bf16, and on ``mma`` at Gemma 2 9B's
-   in f32, each with the compiled registers and spilled bytes, on the FMA
-   kernel at d 320, the SSD scan's FMA kernels at mamba2-780m widths with
-   N 256 (chunk 256, bf16; each launch's time from the profiler), rmsnorm's
+   in f32, each with the compiled registers and spilled bytes, on ``mma``'s
+   split kernel at d 320 and 512 (Gemma 2 9B's heads, 2048 positions,
+   (128, 128)) in both types and on the FMA kernel at d 1088, the SSD
+   scan's streamed ``mma`` kernel in f32 at chunk 256 at mamba2-780m and
+   zamba2-2.7b widths and in bf16 at N 256, dh 128 and chunk 512, and its
+   FMA kernels at N 384 (each launch's time from the profiler), rmsnorm's
    wide path at 1024 x 65,536 bf16 and its two-pass and scalar paths at
    llama3-8b's rows;
 5. plan cells, llama3-8b at full width (launch counts set to 0 before and
@@ -356,23 +360,28 @@ def ssd_bound(p, L: int, itemsize: int):
 
 
 def ssd_launch_split(run, reps: int = 3):
-    """Milliseconds per call of each CUDA kernel an SSD scan call launches,
-    from the profiler, as the mean over ``reps`` calls."""
+    """Milliseconds per launch of each CUDA kernel an SSD scan call launches,
+    from the profiler: after a warm call, the mean over the launches the
+    profiler recorded in ``reps`` calls (it may miss one: dividing by
+    ``reps`` read the streamed kernel 2/3 of its CUDA-event time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     names = ("ssd_cumsum_kernel", "ssd_state_kernel", "ssd_intra_kernel", "ssd_wgmma_kernel",
-             "ssd_mma_kernel")
+             "ssd_mma_kernel", "ssd_stream_kernel")
+    run()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    split = {}
+    total, count = {}, {}
     for e in prof.key_averages():
         for n in names:
             if n in e.key:
-                split[n] = split.get(n, 0.0) + e.device_time_total / reps / 1e3
-    return split
+                total[n] = total.get(n, 0.0) + e.device_time_total / 1e3
+                count[n] = count.get(n, 0) + e.count
+    return {n: total[n] / count[n] for n in total}
 
 
 def launches_of(path_counts, kernel: str, route: str):
@@ -1627,8 +1636,10 @@ def main() -> None:
     # and short query blocks (32 rows, one row) on the mma kernel, and f32
     # on it at every tile, its ring holding part of a tile where two whole
     # ones do not fit, d = 160, 192 and 256 with q read from shared memory
-    # (f32 at 256 on 4 warps); d = 320 on the FMA kernel at tiles of 16 and
-    # 32 rows, where its one stage fits
+    # (f32 at 256 on 4 warps); d = 320 and 512 on the mma route's split
+    # kernel (slices of 128 columns, one warp a slice) at tiles of 16-128 rows
+    # and keys, which the FMA kernel took only at 16 and 32 rows (the card
+    # tests take the pools' other tiles)
     flash_cases = [(128, 256, 0, True), (128, 320, 64, True), (128, 256, -32, True),
                    (192, 320, 0, False), (256, 128, 0, True), (32, 256, 224, True),
                    (1, 256, 255, True), (512, 512, 64, True)]
@@ -1638,9 +1649,9 @@ def main() -> None:
         routes = {}
         # d 80 (bf16) and 96 (f32) each stand for the head dims padded to
         # one instantiation: 72-120 on wgmma (to 128), 65-96 on mma (to 96)
-        flash_ds = (64, 80 if dtype == torch.bfloat16 else 96, 128, 160, 192, 256, 320)
+        flash_ds = (64, 80 if dtype == torch.bfloat16 else 96, 128, 160, 192, 256, 320, 512)
         for d in flash_ds:
-            tiles = ([(16, 16), (32, 16)] if d > 256 else
+            tiles = ([(16, 16), (32, 16), (128, 128)] if d > 256 else
                      [(bq, bk) for bq in (64, 128, 256, 512) for bk in fa.WGMMA_BLOCKS])
             for sq, sk, q_offset, causal in flash_cases:
                 gen = torch.Generator(device=dev).manual_seed(sq + sk + d)
@@ -1654,7 +1665,7 @@ def main() -> None:
                                                       q.element_size()).feasible:
                         continue
                     kw = dict(causal=causal, block_q=bq, block_k=bk, q_offset=q_offset)
-                    key = f"flash_attention/{fa.route(q.dtype, d, bq_, bk_)}"
+                    key = fa.launch_key(q.dtype, d, bq_, bk_)
                     before = _build.LAUNCHES[key]
                     agree = conformance.agree_with_plain(
                         fa.flash_attention_cuda(q, k, v, **kw),
@@ -1666,18 +1677,19 @@ def main() -> None:
                     routes[d][key] = routes[d].get(key, 0) + 1
                     n_ok += 1
         # each head dim launched the kernels route() names for it: f32 only
-        # mma (fma above 256); bf16 wgmma at the pools' tiles and mma at
-        # short query blocks (fma above 256)
+        # mma; bf16 wgmma at the pools' tiles and mma at short query blocks;
+        # above 256 only mma's split kernel
         for d in flash_ds:
-            want = ({"flash_attention/fma"} if d > 256 else {"flash_attention/mma"}
+            want = ({fa.SPLIT_KEY} if d > 256 else {"flash_attention/mma"}
                     if dtype == torch.float32 else
                     {"flash_attention/wgmma", "flash_attention/mma"})
             if set(routes.get(d, {})) != want:
                 fail(f"flash {dtype} d={d}: runs per route {routes.get(d)}, not on {want}")
         print(f"cases flash_attention {str(dtype).split('.')[1]}: {n_ok} runs (sq != sk, "
               f"q_offset 64/0/-32, non-causal, odd walks, d {'/'.join(map(str, flash_ds))}, "
-              f"block_q 512, 256, 32 and 1 query rows, block_k 512/320/256; d 320 at tiles "
-              f"of 16 and 32 rows) agree with the plain version row by row (worst row "
+              f"block_q 512, 256, 32 and 1 query rows, block_k 512/320/256; d 320 and 512 at "
+              f"tiles of 16, 32 and 128 rows on the split kernel) agree with the plain version "
+              f"row by row (worst row "
               f"err/limit {worst:.3g}); runs per head dim and route {routes}", flush=True)
     # the bf16 SSD scan on its wgmma route at every instantiated (chunk, N),
     # with and without an initial state, over five chunks of three heads
@@ -1704,31 +1716,35 @@ def main() -> None:
           f"row on wgmma (worst row err/limit {worst:.3g})", flush=True)
     # the SSD scan's mma route: f32 and bf16, chunks 32-256, odd dh and N
     # (padded inside the kernel), with and without an initial state, three
-    # chunks (odd against the two-stage ring) of three heads; and the FMA
-    # kernels at what the mma kernel does not take (f32 chunk tiles beyond a
-    # block, N above 128)
+    # chunks (odd against the two-stage ring) of three heads; its streamed
+    # kernel at what the whole-chunk kernel does not take (f32 chunk tiles
+    # beyond a block, N above 128, dh above 128, chunks above 256); and the
+    # FMA kernels at N past two warps' streamed block
     n_ok = 0
     worst = {}
     routes = {}
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     cases = [(dtype, dh, N, chunk, "mma") for dtype in dtypes
              for dh, N in ((24, 40), (32, 48), (64, 128)) for chunk in (32, 64, 128, 256)
-             if ssd.route(dtypes[dtype], chunk, dh, N) == "mma"]
-    # the FMA kernels' census points: N above 128 (to 256), chunk 512, a row
-    # tile of 32 where 64 does not fit, dh and N padded to 4, masked last
-    # row tiles and slices
-    cases += [("float32", 64, 128, 256, "fma"), ("float32", 32, 160, 64, "fma"),
-              ("bfloat16", 32, 160, 64, "fma"), ("float32", 128, 256, 256, "fma"),
-              ("bfloat16", 64, 256, 256, "fma"), ("bfloat16", 96, 128, 512, "fma"),
-              ("float32", 256, 64, 128, "fma"), ("float32", 30, 130, 96, "fma"),
-              ("bfloat16", 130, 30, 160, "fma"), ("bfloat16", 64, 192, 320, "fma")]
+             if ssd.launch_key(dtypes[dtype], chunk, dh, N) == "ssd_scan/mma"]
+    # the points the FMA kernels took, now streamed on mma: N above 128 (to
+    # 256), chunk 512, f32 chunk 256, dh above 128 (slices of dh), dh and N
+    # padded, masked last sub-tiles and slices; and one the FMA kernels keep
+    streamed = [("float32", 64, 128, 256), ("float32", 64, 64, 256), ("float32", 32, 160, 64),
+                ("bfloat16", 32, 160, 64), ("float32", 128, 256, 256),
+                ("bfloat16", 64, 256, 256), ("bfloat16", 96, 128, 512),
+                ("float32", 256, 64, 128), ("float32", 30, 130, 96),
+                ("bfloat16", 130, 30, 160), ("bfloat16", 64, 192, 320)]
+    cases += [(*case, "mma") for case in streamed] + [("float32", 32, 384, 64, "fma")]
     for dtype, dh, N, chunk, path in cases:
         if ssd.route(dtypes[dtype], chunk, dh, N) != path:
             fail(f"ssd {dtype} dh={dh} N={N} chunk={chunk} is not on route {path}")
         shape = KernelShape("ssd_mma_case", "ssd_scan",
                             {"b": 1, "s": 3 * chunk, "nh": 3, "dh": dh, "N": N}, dtype)
         x, dt, A, B, C = conformance.make_inputs(shape, device=dev)
-        key = f"ssd_scan/{path}"
+        key = ssd.launch_key(dtypes[dtype], chunk, dh, N)
+        if (key == ssd.STREAM_KEY) != ((dtype, dh, N, chunk) in streamed):
+            fail(f"ssd {dtype} dh={dh} N={N} chunk={chunk} counts under {key}")
         gen = torch.Generator(device=dev).manual_seed(chunk + N + dh)
         for s0 in (None, 0.3 * torch.randn(1, 3, dh, N, generator=gen, device=dev)):
             before = _build.LAUNCHES[key]
@@ -1741,12 +1757,13 @@ def main() -> None:
             worst[key] = max(worst.get(key, 0.0), agree["ratio"])
             routes[key] = routes.get(key, 0) + 1
             n_ok += 1
-    if not routes.get("ssd_scan/mma") or not routes.get("ssd_scan/fma"):
+    if not all(routes.get(k) for k in ("ssd_scan/mma", ssd.STREAM_KEY, "ssd_scan/fma")):
         fail(f"cases ssd_scan mma: runs per route {routes}")
     print(f"cases ssd_scan mma: {n_ok} runs (f32 and bf16, dh/N 24/40, 32/48, 64/128, chunk "
-          f"32-256, with and without initial_state, 3 chunks, 3 heads; the FMA kernels at "
-          f"f32 dh 64 N 128 chunk 256, N 160-256, chunk 512, dh 256, and dh/N/chunk "
-          f"30/130/96, 130/30/160, 64/192/320) agree with the plain version row by row; "
+          f"32-256, with and without initial_state, 3 chunks, 3 heads; streamed on mma at "
+          f"f32 dh 64 N 128 and N 64 chunk 256, N 160-256, chunk 512, dh 256, and "
+          f"dh/N/chunk 30/130/96, 130/30/160, 64/192/320; the FMA kernels at f32 N 384) "
+          f"agree with the plain version row by row; "
           f"runs per route {routes}, worst row err/limit by route "
           f"{ {k: float(f'{v:.3g}') for k, v in worst.items()} }", flush=True)
     # rmsnorm at an odd row count on every path and block_rows
@@ -2229,8 +2246,11 @@ def main() -> None:
     # the routes the main path does not run, each at a size only it takes,
     # against its plain version and timed: flash attention at Gemma 2 9B's
     # attention widths (google/gemma-2-9b config.json: 16 heads, 8 KV
-    # heads, head_dim 256) on mma in f32 and at d 320 on the FMA kernel; the
-    # SSD scan's FMA kernels at mamba2-780m widths with N 256; rmsnorm's
+    # heads, head_dim 256) on mma in f32, at d 320 and 512 on the mma route's
+    # split kernel in both types and at d 1088 on the FMA kernel; the SSD
+    # scan's streamed mma kernel in f32 at chunk 256 at mamba2-780m and
+    # zamba2-2.7b widths and in bf16 at N 256, dh 128 and chunk 512, and its
+    # FMA kernels at N 384; rmsnorm's
     # wide path at 1024 x 65,536 and its two-pass and scalar paths at
     # llama3-8b's rows. Each goes into the kernels line under its kernel's
     # entry, "other_routes". Flash attention's wgmma route at head dims the
@@ -2241,6 +2261,8 @@ def main() -> None:
 
     def other_route(kernel, route_name, shape_txt, run, plain, bound, lib, source, *,
                     wrapper=True, into=None, **extra):
+        # route_name: the kernel's launch key after "<kernel>/" ("mma:split"
+        # for a route's second kernel)
         before = _build.LAUNCHES[f"{kernel}/{route_name}"]
         agree = conformance.agree_with_plain(run(), plain())
         launched = _build.LAUNCHES[f"{kernel}/{route_name}"] == before + wrapper
@@ -2278,18 +2300,21 @@ def main() -> None:
     for p, dtype_name, bq, bk in (
             (stablelm, "bfloat16", 512, 512), (stablelm, "bfloat16", 128, 128),
             (gemma, "bfloat16", 128, 128), (gemma, "float32", 128, 128),
-            ({"b": 1, "sq": 512, "sk": 512, "h": 16, "kh": 8, "d": 320}, "bfloat16", 32, 16)):
+            *((dict(gemma, sq=2048, sk=2048, d=d), dtype_name, 128, 128)
+              for d in (320, 512) for dtype_name in ("float32", "bfloat16")),
+            ({"b": 1, "sq": 256, "sk": 256, "h": 4, "kh": 2, "d": 1088}, "float32", 8, 8)):
         shape = KernelShape("attn_wide", "flash_attention", p, dtype_name)
         q, k, v = conformance.make_inputs(shape, device=dev)
         qh, kh_, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         kw = dict(causal=True, block_q=bq, block_k=bk)
-        route_name = fa.route(q.dtype, p["d"], bq, bk)
-        if (route_name == "wgmma") != (dtype_name == "bfloat16" and p["d"] <= 256):
+        route_name, key = fa.route(q.dtype, p["d"], bq, bk), fa.launch_key(q.dtype, p["d"], bq, bk)
+        if (route_name == "wgmma") != (dtype_name == "bfloat16" and p["d"] <= 256) or \
+                (route_name == "fma") != (p["d"] > fa.MMA_MAX_D):
             fail(f"flash_attention at {p} {dtype_name} ({bq}, {bk}) on {route_name}")
         res = kernel_resources(shape, kw)
         regs, local = (fa.mma_attributes(p["d"], q.dtype) if route_name == "mma" else
                        fa.wgmma_attributes(p["d"], bq, bk) if route_name == "wgmma" else (0, 0))
-        other_route("flash_attention", route_name,
+        other_route("flash_attention", key.split("/")[1],
                     f"b{p['b']} s{p['sq']} h{p['h']} kh{p['kh']} d{p['d']} {dtype_name} "
                     f"causal ({bq}, {bk})",
                     lambda: fa.flash_attention_cuda(q, k, v, **kw),  # noqa: B023
@@ -2297,25 +2322,60 @@ def main() -> None:
                     flash_bound(p, dtype_name, True, q.element_size()),
                     lambda: F.scaled_dot_product_attention(  # noqa: B023
                         qh, kh_, vh, is_causal=True, enable_gqa=True),
-                    fa.SOURCES[route_name], into=head_dims if route_name == "wgmma" else None,
+                    fa.SPLIT_SOURCE if key == fa.SPLIT_KEY else fa.SOURCES[route_name],
+                    into=head_dims if route_name == "wgmma" else None,
                     threads=res.threads, smem=res.vmem_bytes, registers=regs,
                     local_bytes=local)
         del q, k, v, qh, kh_, vh
 
-    shape = KernelShape("ssd_mamba2_780m_n256_b8_s4096_bf16", "ssd_scan",
-                        {"b": 8, "s": 4096, "nh": 48, "dh": 64, "N": 256}, "bfloat16")
-    inputs = conformance.make_inputs(shape, device=dev)
-    L = 256
-    run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=L)  # noqa: E731
-    if ssd.route(torch.bfloat16, L, 64, 256) != "fma":
-        fail("ssd_scan at N 256 is not on the fma route")
-    split = ssd_launch_split(run)
-    other_route("ssd_scan", "fma", f"{shape.params} bf16 chunk {L}", run,
-                lambda: ssd.ssd_scan_plain(*inputs, chunk=L), ssd_bound(shape.params, L, 2),
-                None, ssd.SOURCES["fma"], row_tile=ssd.row_tile(L, 256, 64),
-                state_plan=list(ssd.state_plan(L, 256, 64)),
-                launch_ms={k: round(v, 4) for k, v in split.items()})
-    del inputs
+    # registers and spilled bytes of each instantiation of flash attention's
+    # split kernel (one a dtype and sub-tile) and of the SSD scan's streamed
+    # kernel (one a dtype)
+    instantiations = {
+        "flash_attention": {
+            f"{str(dt).split('.')[1]} kc {fa.mma_sub_keys(d, dt.itemsize)}":
+            dict(zip(("registers", "local_bytes"), fa.mma_attributes(d, dt)))
+            for dt, d in ((torch.float32, 320), (torch.float32, 512), (torch.float32, 1024),
+                          (torch.bfloat16, 320), (torch.bfloat16, 1024))},
+        "ssd_scan": {str(dt).split(".")[1]: dict(zip(("registers", "local_bytes"),
+                                                     ssd.stream_attributes(dt)))
+                     for dt in (torch.float32, torch.bfloat16)}}
+    print(f"registers of the new instantiations (split flash kernel by dtype and sub-tile "
+          f"keys; streamed SSD kernel by dtype): {instantiations} [{card}]", flush=True)
+
+    # the SSD scan's streamed mma kernel at the sizes the FMA kernels took
+    # (each launch's time from the profiler), and the FMA kernels at N 384
+    mamba = {"b": 8, "s": 4096, "nh": 48, "dh": 64, "N": 128}
+    for name, params, dtype_name, L in (
+            ("ssd_mamba2_780m_b8_s4096_f32", mamba, "float32", 256),
+            ("ssd_zamba2_2_7b_b8_s4096_f32", dict(mamba, nh=80, N=64), "float32", 256),
+            ("ssd_mamba2_780m_n256_b8_s4096_bf16", dict(mamba, N=256), "bfloat16", 256),
+            ("ssd_mamba2_780m_dh128_b8_s4096_bf16", dict(mamba, nh=24, dh=128), "bfloat16",
+             256),
+            ("ssd_mamba2_780m_b8_s4096_bf16", mamba, "bfloat16", 512),
+            ("ssd_n384_b1_s4096_f32", {"b": 1, "s": 4096, "nh": 8, "dh": 32, "N": 384},
+             "float32", 64)):
+        shape = KernelShape(name, "ssd_scan", params, dtype_name)
+        inputs = conformance.make_inputs(shape, device=dev)
+        itemsize = inputs[0].element_size()
+        route_name = ssd.route(inputs[0].dtype, L, params["dh"], params["N"])
+        streams = ssd.mma_streams(L, params["N"], params["dh"], itemsize)
+        if (route_name, streams) != (("fma", True) if params["N"] > 352 else ("mma", True)):
+            fail(f"ssd_scan {name} chunk {L} on {route_name} (streamed: {streams})")
+        run = lambda: ssd.ssd_scan_cuda(*inputs, chunk=L)  # noqa: E731
+        split = ssd_launch_split(run)
+        regs, local = (ssd.stream_attributes(inputs[0].dtype) if route_name == "mma"
+                       else (0, 0))
+        key = ssd.launch_key(inputs[0].dtype, L, params["dh"], params["N"])
+        other_route("ssd_scan", key.split("/")[1], f"{params} {dtype_name} chunk {L}", run,
+                    lambda: ssd.ssd_scan_plain(*inputs, chunk=L),  # noqa: B023
+                    ssd_bound(params, L, itemsize), None,
+                    ssd.STREAM_SOURCE if route_name == "mma" else ssd.SOURCES["fma"],
+                    threads=ssd.mma_launch(L, params["N"], params["dh"], itemsize)[0]
+                    if route_name == "mma" else ssd.THREADS,
+                    registers=regs, local_bytes=local,
+                    launch_ms={k: round(v, 4) for k, v in split.items()})
+        del inputs
 
     gen = torch.Generator(device=dev).manual_seed(65_536)
     x = (0.3 * torch.randn(1024, 65_536, generator=gen, device=dev)).to(torch.bfloat16)
@@ -2377,9 +2437,12 @@ def main() -> None:
     for kernel, entries in other_routes.items():
         next(r for r in results if r["name"] == kernel)["other_routes"] = entries
     next(r for r in results if r["name"] == "flash_attention")["head_dims"] = head_dims
-    # each kernel's main-path launches split by its routes
-    for kernel, names in (("flash_attention", ("wgmma", "mma", "fma")),
-                          ("ssd_scan", ("wgmma", "mma", "fma")),
+    for kernel, regs in instantiations.items():
+        next(r for r in results if r["name"] == kernel)["new_instantiations"] = regs
+    # each kernel's main-path launches split by its routes (a route's second
+    # kernel under a key of its own)
+    for kernel, names in (("flash_attention", ("wgmma", "mma", "mma:split", "fma")),
+                          ("ssd_scan", ("wgmma", "mma", "mma:stream", "fma")),
                           ("rmsnorm", ("registers", "two-pass", "scalar", "wide"))):
         by_route = {n: launches_of(path_counts, kernel, n)[0] for n in names}
         for r in results:

@@ -57,9 +57,11 @@ SIGNATURES = {
     "ssd_scan_wgmma_attributes": [_I, _I, _I, _P, _P],
     "ssd_scan_mma_launch": [_P] * 9 + [_I] * 9 + [_P],
     "ssd_scan_mma_attributes": [_I, _I, _I, _P, _P],
+    "ssd_scan_stream_attributes": [_I, _P, _P],
 }
 
-#: launches per kernel, and per kernel and route under "<kernel>/<route>":
+#: launches per kernel, and per kernel and route under "<kernel>/<route>"
+#: (a route's second kernel under "<kernel>/<route>:<name>"):
 #: each CUDA wrapper adds one where it launches its
 #: kernel, and nowhere else (``ops.launch_counts`` reads it)
 LAUNCHES: collections.Counter = collections.Counter()

@@ -8,8 +8,9 @@
 // csrc/flash_attention_wgmma.cu does not take (f32 inputs; bf16 at a head
 // dim other than 64 or 128, a block outside {64, 128, 256, 512} or a
 // sequence shorter than 64), at every tile up to d 256;
-// csrc/flash_attention_fma.cu takes d above 256 (the rule is
-// repro_torch/kernels/flash_attention.py::route). Same function: q
+// csrc/flash_attention_split.cu takes d 257-1024 on the same products, the
+// head dim cut into slices of 128 columns, and csrc/flash_attention_fma.cu
+// d above 1024 (the rule is repro_torch/kernels/flash_attention.py::route). Same function: q
 // [b, sq, h, d], k and v [b, sk, kh, d], GQA (query head `hd` reads KV head
 // `hd / (h / kh)`), q scaled by 1/sqrt(d) in f32, causal keeps
 // q_offset + i >= j, masked scores are -1e30 (not -inf, so a fully masked
@@ -96,7 +97,9 @@
 //   products per product (3 for f32, 2 for bf16).
 // Files: the kernel template and its launch in csrc/flash_attention_mma.cuh;
 //   the instantiations at DP 160-256 in csrc/flash_attention_wide.cu, a
-//   translation unit of their own that nvcc builds beside this one.
+//   translation unit of their own that nvcc builds beside this one; d
+//   257-1024 in csrc/flash_attention_split.cu, which the C entry points
+//   below hand those calls to.
 #include "flash_attention_mma.cuh"
 
 namespace flash_mma {
@@ -108,6 +111,11 @@ FLASH_MMA_INSTANCES(extern, float, 192)
 FLASH_MMA_INSTANCES(extern, __nv_bfloat16, 192)
 FLASH_MMA_INSTANCES(extern, float, 256)
 FLASH_MMA_INSTANCES(extern, __nv_bfloat16, 256)
+
+// d 257-1024, in csrc/flash_attention_split.cu
+int split_launch(const void* q, const void* k, const void* v, void* o, const int* cfg,
+                 float scale, cudaStream_t stream);
+int split_attributes(int d, int dtype, int* regs, int* local_bytes);
 
 // calls f.template operator()<T, DP>() for an instantiated (dtype, DP),
 // else returns cudaErrorInvalidValue
@@ -159,9 +167,11 @@ using namespace flash_mma;
 // cfg holds b, sq, sk, h, kh, d, bq, bk, causal, q_offset, dtype, threads,
 // smem and the keys a stage holds (flash_attention.py::mma_stage_keys): the
 // wrapper builds it once for a call's shapes and options, so a call passes
-// 7 arguments, not 20 (each costs the host a conversion)
+// 7 arguments, not 20 (each costs the host a conversion). d above 256 goes
+// to the split kernel.
 extern "C" int flash_attention_mma_launch(const void* q, const void* k, const void* v, void* o,
                                           const int* cfg, float scale, void* stream) {
+  if (cfg[5] > 256) return split_launch(q, k, v, o, cfg, scale, (cudaStream_t)stream);
   const int b = cfg[0], sq = cfg[1], sk = cfg[2], h = cfg[3], kh = cfg[4], d = cfg[5],
             bq = cfg[6], bk = cfg[7], causal = cfg[8], q_offset = cfg[9], dtype = cfg[10],
             threads = cfg[11], smem = cfg[12], st = cfg[13];
@@ -178,5 +188,6 @@ extern "C" int flash_attention_mma_launch(const void* q, const void* k, const vo
 
 // the compiler's registers per thread and local (spill) bytes at one head dim
 extern "C" int flash_attention_mma_attributes(int d, int dtype, int* regs, int* local_bytes) {
+  if (d > 256) return split_attributes(d, dtype, regs, local_bytes);
   return dispatch(dtype, padded_d(d), Attr{regs, local_bytes});
 }

@@ -1,10 +1,10 @@
 // Blockwise (flash) attention with online softmax on f32 FMAs, hand-written
-// for Hopper: the route for the calls that csrc/flash_attention.cu (the mma
-// route, split TF32 on the tensor cores) cannot take, a head dim above 128
-// or two K and V stages of block_k rows that do not fit a block's shared
-// memory (with f32 at small block_q and large block_k this kernel still
-// fits); csrc/flash_attention_wgmma.cu takes the bf16 tiles it is
-// instantiated for. The rule is repro_torch/kernels/flash_attention.py::route.
+// for Hopper: the route for the calls that the mma route (split TF32 on the
+// tensor cores: csrc/flash_attention.cu up to d 256, its split kernel
+// csrc/flash_attention_split.cu up to d 1024) cannot take, head dims above
+// 1024, where this kernel fits tiles of a few rows;
+// csrc/flash_attention_wgmma.cu takes the bf16 tiles it is instantiated
+// for. The rule is repro_torch/kernels/flash_attention.py::route.
 //
 // Replaces the Pallas kernel
 // src/repro/kernels/flash_attention.py::_flash_kernel (pallas_call in

@@ -20,12 +20,13 @@
 // (~1.2 ms). So these kernels take only what the tensor-core routes do not
 // (repro_torch/kernels/ssd_scan.py::route decides before the launch): bf16
 // at the sizes csrc/ssd_scan_wgmma.cu is instantiated for (dh 64, N 64 or
-// 128, chunk 64-256) take that kernel, every other call up to dh 128, N 128
-// and chunk 256 whose chunk tiles fit a block takes csrc/ssd_scan_mma.cu
-// (split products on mma.sync, no y_inter scratch), and this file's state
-// and intra kernels run the rest: dh or N above 128, a chunk above 256, and
-// f32 chunk tiles too large for one block (chunk 256 at mamba2-780m
-// widths). Its chunk cumsum (ssd_cumsum_launch) runs first on every route.
+// 128, chunk 64-256) take that kernel, every other call whose block fits
+// takes the mma route (split products on mma.sync, no y_inter scratch:
+// csrc/ssd_scan_mma.cu up to dh 128, N 128 and chunk 256 where a chunk's
+// tiles fit a block, csrc/ssd_scan_stream.cu the rest, its chunks streamed
+// in sub-tiles), and this file's state and intra kernels run what is left:
+// N above what two warps' streamed block holds (352 in f32, 640 in bf16).
+// Its chunk cumsum (ssd_cumsum_launch) runs first on every route.
 //
 // What the design does about it. The Pallas block holds an [L, L, nh] f32
 // decay tensor in VMEM (12.6 MB at L=256, nh=48); a Hopper block has 227 KB.

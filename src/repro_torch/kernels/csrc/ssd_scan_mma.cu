@@ -10,8 +10,9 @@
 // with the lax.scan recurrence between them (106-116), for every call that
 // csrc/ssd_scan_wgmma.cu is not instantiated for (f32 inputs; bf16 at chunk
 // 32, or another dh, N or chunk) up to dh 128, N 128 and chunk 256 where
-// one chunk's tiles fit a block's shared memory; csrc/ssd_scan.cu takes the
-// rest (the rule is repro_torch/kernels/ssd_scan.py::route). Same function:
+// one chunk's tiles fit a block's shared memory; csrc/ssd_scan_stream.cu
+// takes the rest of the route, its chunks streamed in sub-tiles (the rules
+// are repro_torch/kernels/ssd_scan.py::route and mma_streams). Same function:
 // x [b,s,nh,dh], dt [b,s,nh], B and C [b,s,N] in one type (f32 or bf16), A
 // [nh] f32; y = y_intra + y_inter rounded once to x's type, the final state
 // in f32, `initial_state` threaded in. Nothing is rounded on the way: the
@@ -116,8 +117,7 @@
 // Resource model (resource_model.py::ssd_scan_resources): the cumsum and one
 // walk per (batch, head), the walk's products at the TF32 peak over 3 (f32)
 // or the bf16 peak over 3 (bf16).
-#include "common.cuh"
-#include "mma_tf32.cuh"
+#include "ssd_mma.cuh"
 
 // csrc/ssd_scan.cu
 extern "C" int ssd_cumsum_launch(const void* dt, const void* A, void* cs, long long n_rows,
@@ -125,25 +125,9 @@ extern "C" int ssd_cumsum_launch(const void* dt, const void* A, void* cs, long l
 
 namespace {
 
-constexpr int RT = 32;      // rows of a row tile
 constexpr int MAX_L = 256;  // the longest chunk the kernel takes
 constexpr int MAX_N = 128;  // the largest state size
-constexpr int SMEM_LIMIT = 232448;
 
-// 32-bit words of a shared row of n elements of e bytes, padded so that the
-// count is rem modulo mod
-__host__ __device__ constexpr int row_words(int n, int e, int rem, int mod) {
-  return n * e / 4 + ((rem - n * e / 4) % mod + mod) % mod;
-}
-// a C, B or x row of n (padded) elements in the input type: f32 rows 8
-// words mod 32 (8-byte pairs read from 8 rows), bf16 rows 4 mod 32
-// (ldmatrix: 16 bytes from each of 8 rows)
-__host__ __device__ constexpr int in_words(int n, int itemsize) {
-  return itemsize == 4 ? row_words(n, 4, 8, 32) : row_words(n, 2, 4, 32);
-}
-// a row of P (f32, 8-byte pairs read from 8 rows) over lp columns
-__host__ __device__ constexpr int p_words(int lp) { return row_words(lp, 4, 8, 32); }
-__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 // 8-column tiles of the state a warp holds: N padded to 64 or 128
 __host__ __device__ constexpr int n_tiles(int n) { return n <= 64 ? 8 : n <= MAX_N ? 16 : 0; }
 // warps of a CTA: one per 16 columns of dh padded to 32, 64 or 128
@@ -179,86 +163,6 @@ Plan plan(int L, int N, int dh, int itemsize) {
     if (b <= SMEM_LIMIT) return {o[0], o[1], b};
   }
   return {0, 0, 0};
-}
-
-__device__ __forceinline__ float2 ld2(const void* p) { return *reinterpret_cast<const float2*>(p); }
-
-// four 8 x 8 bf16 matrices, lanes 8m .. 8m + 7 giving the rows of matrix m:
-// lane t gets (row t / 4, columns 2 (t % 4), + 1) of each, or with .trans
-// (rows 2 (t % 4), + 1, column t / 4), the lower index in the low half
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const uint32_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const uint32_t* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
-}
-// c += a * b on one m16n8k16 bf16 tile, in f32: the product of two bf16
-// values is exact in f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// a word's two bf16 values (the lower index in the low half) as f32
-__device__ __forceinline__ float2 bf16x2_unpack(uint32_t w) {
-  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-}
-
-// (x, y) = hi + mid + lo, each part a pair of bf16 (x in the low half),
-// returned as p[0] = lo, p[1] = mid, p[2] = hi, the order they are
-// multiplied in: each subtraction is exact, and what is left is below
-// 2^-24 of |x| and |y|
-__device__ __forceinline__ void split3(float x, float y, uint32_t (&p)[3]) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(hi);
-  const float rx = x - hf.x, ry = y - hf.y;
-  const __nv_bfloat162 mid = __floats2bfloat162_rn(rx, ry);
-  const float2 mf = __bfloat1622float2(mid);
-  p[0] = bf16x2_bits(__floats2bfloat162_rn(rx - mf.x, ry - mf.y));
-  p[1] = bf16x2_bits(mid);
-  p[2] = bf16x2_bits(hi);
-}
-
-// the parts of four pairs as the A fragments of the three parts
-__device__ __forceinline__ void split3_frag(const float2 (&v)[4], uint32_t (&a)[3][4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    uint32_t t[3];
-    split3(v[e].x, v[e].y, t);
-#pragma unroll
-    for (int q = 0; q < 3; ++q) a[q][e] = t[q];
-  }
-}
-
-// c += a * b, both given as their parts: three products, small terms first
-__device__ __forceinline__ void mma_parts(float (&c)[4], const uint32_t (&a_big)[4],
-                                          const uint32_t (&a_small)[4], uint32_t b0_big,
-                                          uint32_t b1_big, uint32_t b0_small,
-                                          uint32_t b1_small) {
-  mma(c, a_small, b0_big, b1_big);
-  mma(c, a_big, b0_small, b1_small);
-  mma(c, a_big, b0_big, b1_big);
-}
-
-// the A fragment of rows gid (pair p0) and gid + 8 (pair p1), physical
-// columns 2 tig and 2 tig + 1, split into its parts
-__device__ __forceinline__ void split_pairs(float2 p0, float2 p1, uint32_t (&big)[4],
-                                            uint32_t (&small)[4]) {
-  split(p0.x, big[0], small[0]);
-  split(p1.x, big[1], small[1]);
-  split(p0.y, big[2], small[2]);
-  split(p1.y, big[3], small[3]);
 }
 
 // Fragments, lane = 4 * gid + tig. m16n8k8 TF32 (f32 inputs): A (16 x 8)
@@ -748,18 +652,28 @@ struct Attr {
 
 }  // namespace
 
+// csrc/ssd_scan_stream.cu: the calls this file's kernel does not take
+int ssd_stream_launch(const void* x, const void* dt, const void* A, const void* B, const void* C,
+                      const void* s0, void* cs, void* y, void* s_final, int b, int s, int nh,
+                      int dh, int N, int L, int dtype, int threads, int smem, void* stream);
+
 // x [b,s,nh,dh], dt [b,s,nh], B and C [b,s,N] in one type (dtype), A [nh]
 // f32, s0 [b,nh,dh,N] f32 or null; cs [b,s,nh] f32 is the cumsum's output;
 // y in x's type and s_final [b,nh,dh,N] f32 are written. threads and smem
-// must be what repro_torch/kernels/ssd_scan.py's mma_threads and
-// smem_bytes_mma give.
+// must be what repro_torch/kernels/ssd_scan.py's mma_launch gives. A call
+// above dh 128, N 128 or chunk 256, or whose chunk tiles do not fit a block
+// (ssd_scan.py::mma_streams), goes to the streamed kernel.
 extern "C" int ssd_scan_mma_launch(const void* x, const void* dt, const void* A, const void* B,
                                    const void* C, const void* s0, void* cs, void* y,
                                    void* s_final, int b, int s, int nh, int dh, int N, int L,
                                    int dtype, int threads, int smem, void* stream) {
   const int w = warps_for(dh);
-  if (b <= 0 || s <= 0 || nh <= 0 || dh <= 0 || N <= 0 || N > MAX_N || L <= 0 || L > MAX_L ||
-      s % L != 0 || w == 0 || threads != 32 * w || (dtype != DTYPE_F32 && dtype != DTYPE_BF16) ||
+  if (N > 0 && L > 0 && (N > MAX_N || L > MAX_L || w == 0 ||
+                         plan(L, N, dh, dtype == DTYPE_F32 ? 4 : 2).stages == 0))
+    return ssd_stream_launch(x, dt, A, B, C, s0, cs, y, s_final, b, s, nh, dh, N, L, dtype,
+                             threads, smem, stream);
+  if (b <= 0 || s <= 0 || nh <= 0 || dh <= 0 || N <= 0 || L <= 0 || s % L != 0 ||
+      threads != 32 * w || (dtype != DTYPE_F32 && dtype != DTYPE_BF16) ||
       (long long)b * nh > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const Plan pl = plan(L, N, dh, dtype == DTYPE_F32 ? 4 : 2);

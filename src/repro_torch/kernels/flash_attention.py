@@ -21,9 +21,12 @@ each operand split into two TF32 parts, three products per product for f32
 and two where the operand is bf16, which keeps f32 accuracy: plain TF32
 would not hold f32 to its plain version; its K/V ring holds whole tiles
 where two fit a block, else sub-tiles; above d = 128 q stays in shared
-memory); d above 256 takes ``csrc/flash_attention_fma.cu`` (f32 FMAs on
-the CUDA cores, one K/V stage), which refuses a tile whose shared memory
-does not fit.
+memory); d 257-1024 takes the same route's split kernel
+(``csrc/flash_attention_split.cu``: the head dim in slices of 128 columns,
+one warp a slice, the slices' partial scores added in one fixed order) at
+every tile; d above 1024 takes ``csrc/flash_attention_fma.cu`` (f32 FMAs
+on the CUDA cores, one K/V stage), which refuses a tile whose shared
+memory does not fit.
 A failed build or launch raises; no route stands in for another.
 ``flash_attention_plain`` walks the same ``block_q`` / ``block_k`` tiles
 with the same online softmax in plain torch, including the causal tile
@@ -47,14 +50,25 @@ from repro_torch.kernels import _build
 SOURCES = {"mma": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "wgmma": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
            "fma": "src/repro_torch/kernels/csrc/flash_attention_fma.cu"}
+#: the mma route's kernel above d = 256, and its launch count's key (the
+#: route's other kernel counts under "flash_attention/mma"; see
+#: :func:`launch_key`)
+SPLIT_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_split.cu"
+SPLIT_KEY = "flash_attention/mma:split"
 REPLACES = "src/repro/kernels/flash_attention.py:24"
 
 NEG_INF = -1e30
 
 #: head dims the mma kernel is instantiated for; d is zero-padded inside
 #: the kernel to the next of them (``FLASH_MMA_CASE`` in its source lists
-#: the same), and a larger d goes to the FMA kernel
+#: the same)
 MMA_D = (16, 32, 64, 96, 128, 160, 192, 256)
+#: above 256 the mma route's split kernel pads d to a multiple of 8 and cuts
+#: it into slices of ``MMA_SLICE`` columns, one warp a slice, up to
+#: ``MMA_MAX_D`` (``SLICE`` and ``SPLIT_MAX_D`` in its source); a larger d
+#: goes to the FMA kernel
+MMA_SLICE = 128
+MMA_MAX_D = 1024
 #: most warps of an mma block (16 query rows each; fewer where their q rows
 #: would not leave a block room for two stages of one sub-tile, see
 #: :func:`mma_max_warps`); a larger q tile runs in passes of 16 rows a warp
@@ -88,7 +102,7 @@ def route(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
     decided before the launch: ``"wgmma"`` for bf16 at a head dim that
     :func:`wgmma_head_dim` pads (a multiple of 8 up to 256) and
     ``block_q``, ``block_k`` in ``WGMMA_BLOCKS``; else ``"mma"`` where d is
-    at most 256; else ``"fma"``."""
+    at most ``MMA_MAX_D``; else ``"fma"``."""
     if (dtype == torch.bfloat16 and wgmma_head_dim(d) and block_q in WGMMA_BLOCKS
             and block_k in WGMMA_BLOCKS):
         return "wgmma"
@@ -151,14 +165,47 @@ def smem_bytes_wgmma(block_q: int, block_k: int, d: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def mma_head_dim(d: int) -> int:
-    """The head dim the mma kernel pads ``d`` to, 0 where it takes none."""
-    return next((p for p in MMA_D if p >= d), 0)
+    """The head dim the mma route pads ``d`` to, 0 where it takes none: the
+    next of ``MMA_D`` up to 256, else d rounded up to 8 up to ``MMA_MAX_D``."""
+    if d <= MMA_D[-1]:
+        return next((p for p in MMA_D if p >= d), 0)
+    return -(-d // 8) * 8 if d <= MMA_MAX_D else 0
+
+
+def mma_slices(d: int) -> int:
+    """Warps that share a group of 16 query rows on the mma route: 1 up to
+    d = 256, else one per ``MMA_SLICE`` columns of the padded head dim."""
+    dp = mma_head_dim(d)
+    return 1 if dp <= MMA_D[-1] else -(-dp // MMA_SLICE)
 
 
 @functools.lru_cache(maxsize=None)
-def mma_sub_keys(d: int) -> int:
+def mma_split_plan(d: int, itemsize: int) -> Tuple[int, int]:
+    """(sub-tile keys, most row groups of a block) of the split kernel (d
+    above 256): the largest sub-tile of 32, 16 and 8 keys, and with it the
+    most groups (``MMA_WARPS`` // slices, halving), whose two stages of one
+    sub-tile, q rows (16 a group) and partial scores (16 x sub-tile f32 a
+    warp) fit a block; ``split_plan`` in its source computes the same.
+    (0, 0) where none fits."""
+    ns = mma_slices(d)
+    k_words, v_words = _mma_row_words(d, itemsize)
+    for kc in (32, 16, 8):
+        g = MMA_WARPS // ns
+        while g >= 1:
+            if 4 * (2 * kc * (k_words + v_words) + 16 * g * k_words + 16 * kc * g * ns) \
+                    <= H100_SXM.smem_per_block:
+                return kc, g
+            g //= 2
+    return 0, 0
+
+
+@functools.lru_cache(maxsize=None)
+def mma_sub_keys(d: int, itemsize: int = 4) -> int:
     """Keys of the sub-tile each warp of the mma kernel takes at once (its
-    S fragment holds half as many registers): 64 up to d = 32, else 32."""
+    S fragment holds half as many registers): 64 up to d = 32, else 32; the
+    split kernel's from :func:`mma_split_plan`."""
+    if mma_slices(d) > 1:
+        return mma_split_plan(d, itemsize)[0]
     return 64 if mma_head_dim(d) <= 32 else 32
 
 
@@ -167,7 +214,10 @@ def mma_max_warps(d: int, itemsize: int) -> int:
     """The most warps of an mma block at this head dim and type:
     ``MMA_WARPS``, halved until their q rows (16 a warp) and two stages of
     one sub-tile fit a block (4 for f32 at d above 192; ``max_warps`` in the
-    kernel's source computes the same)."""
+    kernel's source computes the same); above d = 256 the slices times
+    :func:`mma_split_plan`'s groups."""
+    if mma_slices(d) > 1:
+        return mma_slices(d) * mma_split_plan(d, itemsize)[1]
     k_words, v_words = _mma_row_words(d, itemsize)
     stages = 2 * mma_sub_keys(d) * (k_words + v_words)
     warps = MMA_WARPS
@@ -178,9 +228,10 @@ def mma_max_warps(d: int, itemsize: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def mma_threads(block_q: int, d: int, itemsize: int) -> int:
-    """The mma kernel's threads: one warp per 16 query rows, at most
-    :func:`mma_max_warps`."""
-    return 32 * min(-(-block_q // 16), mma_max_warps(d, itemsize))
+    """The mma kernel's threads: one warp per 16 query rows (per 16 rows
+    and slice above d = 256), at most :func:`mma_max_warps`."""
+    ns = mma_slices(d)
+    return 32 * ns * min(-(-block_q // 16), mma_max_warps(d, itemsize) // ns)
 
 
 def _mma_row_words(d: int, itemsize: int) -> Tuple[int, int]:
@@ -193,17 +244,27 @@ def _mma_row_words(d: int, itemsize: int) -> Tuple[int, int]:
     return k_words, _build.row_words(dp, itemsize, 4, 16)
 
 
+def _mma_fixed_words(block_q: int, d: int, itemsize: int) -> int:
+    """Words of the mma kernel's shared memory beside the K/V ring: the q
+    rows of one pass (16 a row group) and, above d = 256, each warp's
+    partial scores (16 x sub-tile f32)."""
+    k_words, _ = _mma_row_words(d, itemsize)
+    warps, ns = mma_threads(block_q, d, itemsize) // 32, mma_slices(d)
+    partials = 16 * mma_sub_keys(d, itemsize) * warps if ns > 1 else 0
+    return 16 * (warps // ns) * k_words + partials
+
+
 @functools.lru_cache(maxsize=None)
 def mma_stage_keys(block_q: int, block_k: int, d: int, itemsize: int) -> int:
     """Keys one stage of the mma kernel's two-stage K/V ring holds: the
     whole ``block_k`` tile, rounded up to whole sub-tiles, where two such
-    stages and a pass's q rows fit a block; else the largest multiple of
-    the sub-tile that fits, and the kernel brings a tile in that many keys
-    at a time (its result does not depend on it)."""
-    kc = mma_sub_keys(d)
+    stages and a pass's q rows (and partial scores) fit a block; else the
+    largest multiple of the sub-tile that fits, and the kernel brings a
+    tile in that many keys at a time (its result does not depend on it)."""
+    kc = mma_sub_keys(d, itemsize)
     k_words, v_words = _mma_row_words(d, itemsize)
     whole = -(-block_k // kc) * kc
-    room = H100_SXM.smem_per_block - 4 * mma_threads(block_q, d, itemsize) // 2 * k_words
+    room = H100_SXM.smem_per_block - 4 * _mma_fixed_words(block_q, d, itemsize)
     fit = room // (8 * (k_words + v_words)) // kc * kc
     return whole if whole <= fit else fit
 
@@ -211,12 +272,13 @@ def mma_stage_keys(block_q: int, block_k: int, d: int, itemsize: int) -> int:
 @functools.lru_cache(maxsize=None)
 def smem_bytes_mma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
     """Dynamic shared memory the mma kernel asks for: two stages of
-    :func:`mma_stage_keys` K and V rows in the input type and the q rows of
-    one pass (16 a warp), each row padded as :func:`_mma_row_words` says.
-    The launch and the resource model both call this."""
+    :func:`mma_stage_keys` K and V rows in the input type, the q rows of
+    one pass (16 a row group), each row padded as :func:`_mma_row_words`
+    says, and above d = 256 the warps' partial scores. The launch and the
+    resource model both call this."""
     k_words, v_words = _mma_row_words(d, itemsize)
     return 4 * (2 * mma_stage_keys(block_q, block_k, d, itemsize) * (k_words + v_words)
-                + mma_threads(block_q, d, itemsize) // 2 * k_words)
+                + _mma_fixed_words(block_q, d, itemsize))
 
 
 def smem_bytes_fma(block_q: int, block_k: int, d: int, itemsize: int) -> int:
@@ -313,13 +375,23 @@ def _flash_walk(q, k, v, *, causal: bool, bq: int, bk: int, q_offset: int, sub_k
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
 
 
+def launch_key(dtype: torch.dtype, d: int, block_q: int, block_k: int) -> str:
+    """The launch count's key of the kernel a call runs at these tiles:
+    ``"flash_attention/<route>"``, and on ``mma`` above d = 256 the split
+    kernel's :data:`SPLIT_KEY`. Each launch counts under one key; a route's
+    launches are the sum of its kernels' (the key up to ``:``)."""
+    path = route(dtype, d, block_q, block_k)
+    return SPLIT_KEY if path == "mma" and mma_slices(d) > 1 else f"flash_attention/{path}"
+
+
 @functools.lru_cache(maxsize=1024)
 def _launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, block_q: int,
                  block_k: int, causal: bool, q_offset: int) -> Tuple[str, tuple, str, object]:
     """A call's launch, worked out once for its shapes and options (at small
     shapes the host's share of a call is comparable to the kernel's): the
     C entry point, its arguments between the four pointers and the stream,
-    the launch counter's route key, and what must outlive the arguments
+    the launch count's key (:func:`launch_key`), and what must outlive the
+    arguments
     (the mma launcher takes its integers as one array)."""
     bq, bk = _tiles(q_shape, k_shape, v_shape, block_q, block_k)
     b, sq, h, d = q_shape
@@ -338,7 +410,7 @@ def _launch_plan(q_shape, k_shape, v_shape, dtype: torch.dtype, block_q: int,
         args = (ctypes.addressof(cfg), scale)
     else:
         args = (*ints, scale, code, FMA_THREADS, smem_bytes_fma(bq, bk, d, itemsize))
-    return f"flash_attention_{path}_launch", args, f"flash_attention/{path}", cfg
+    return f"flash_attention_{path}_launch", args, launch_key(dtype, d, bq, bk), cfg
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, block_q: int = 512,
@@ -379,8 +451,9 @@ def wgmma_attributes(d: int, block_q: int, block_k: int) -> Tuple[int, int]:
 
 def mma_attributes(d: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) the compiler gave the
-    mma kernel at ``d``'s padded head dim; builds the library. Raises above
-    d = 256."""
+    mma kernel at ``d``'s padded head dim (above 256, the split kernel's
+    instantiation at its sub-tile); builds the library. Raises above
+    ``MMA_MAX_D``."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     err = _build.library().flash_attention_mma_attributes(
         d, _build.DTYPE_CODES[dtype], ctypes.byref(regs), ctypes.byref(local))

@@ -31,7 +31,10 @@ def launch_counts() -> Dict[str, int]:
 
 def route_launch_counts() -> Dict[str, int]:
     """Kernel launches so far per kernel and route (``"flash_attention/wgmma"``,
-    ``"rmsnorm/registers"``, ...), for the kernels that have routes."""
+    ``"rmsnorm/registers"``, ...), for the kernels that have routes; where a
+    route runs two kernels, the second counts under ``"<route>:<kernel>"``
+    (``"flash_attention/mma:split"``, ``"ssd_scan/mma:stream"``) and not
+    under the route's own key."""
     return {k: int(n) for k, n in sorted(_build.LAUNCHES.items()) if "/" in k}
 
 

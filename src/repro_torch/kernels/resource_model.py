@@ -151,8 +151,11 @@ def flash_mma_registers(d: int, itemsize: int) -> int:
     head dim; DP/2 for f32 and above 64, where q is held in f32 and split
     at each use; none above 128, where q stays in shared memory), O (DP/2
     f32), S (half the sub-tile's keys) and 40 for m, l, A and B fragments,
-    P's parts and addresses, rounded up to 8."""
+    P's parts and addresses, rounded up to 8; above d = 256 (the split
+    kernel) O is one slice of ``MMA_SLICE`` columns a warp."""
     dp = _fa.mma_head_dim(d)
+    if _fa.mma_slices(d) > 1:  # the split kernel: a slice of O a warp
+        return _round8(_fa.MMA_SLICE / 2 + _fa.mma_sub_keys(d, itemsize) / 2 + 40)
     q_regs = dp if itemsize == 2 and dp <= 64 else dp / 2 if dp <= 128 else 0
     return _round8(q_regs + dp / 2 + _fa.mma_sub_keys(d) / 2 + 40)
 
@@ -253,6 +256,12 @@ def flash_attention_resources(b: int, sq: int, sk: int, h: int, kh: int, d: int,
 #: bounds ask for (three CTAs an SM at dh 64); the state alone takes N / 2
 SSD_MMA_REGISTERS = 168
 
+#: registers per thread the model gives the SSD mma route's streamed kernel:
+#: what its launch bounds allow (two CTAs of 8 warps an SM); acc (8), the
+#: (x w)^T fragments of a sub-tile (32 for f32), G's partial sums (16),
+#: fragments and addresses
+SSD_STREAM_REGISTERS = 128
+
 #: registers per thread the model gives the SSD wgmma kernel, for its
 #: blocks per SM: a warpgroup's 64 columns of the state, the y tile and G
 #: (32 f32 each), P's two bf16 parts (32) and 48 for addresses, cs and loops
@@ -266,7 +275,9 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
     (``ssd_scan.route``), their times added: on ``wgmma`` the chunk cumsum
     and one chunk walk per (batch, head) on the tensor cores
     (``csrc/ssd_scan_wgmma.cu``); on ``mma`` the cumsum and one chunk walk
-    per (batch, head) on split products (``csrc/ssd_scan_mma.cu``); on ``fma``
+    per (batch, head) on split products (``csrc/ssd_scan_mma.cu``), or per
+    (batch, head, slice of dh) with the chunks streamed
+    (``csrc/ssd_scan_stream.cu``); on ``fma``
     the cumsum, the state walk and the intra-chunk kernel of
     ``csrc/ssd_scan.cu``. ``vmem_bytes`` is the largest block's shared
     memory."""
@@ -300,30 +311,44 @@ def ssd_scan_resources(b: int, s: int, nh: int, dh: int, N: int, chunk: int,
         feasible = _fits(smem, threads, dev)
         occupancy = blocks_per_sm(smem, threads, dev, regs)
     elif route == "mma":
-        lp, rt = -(-L // 16) * 16, _ssd.MMA_ROW_TILE
-        # 16 x 8 tiles of G (and of P . x) at or below the diagonal, over
-        # row tiles of 32 rows
-        g_tiles = sum((r0 // 8 + 2) * 2 + 2 if lp - r0 >= rt else r0 // 8 + 2
-                      for r0 in range(0, lp, rt))
-        smem = _ssd.smem_bytes_mma(L, N, dh, itemsize)
-        threads = _ssd.mma_threads(dh)
-        regs = SSD_MMA_REGISTERS
-        walk = dict(
-            smem=smem, threads=threads, n_blocks=b * nh, regs=regs,
-            # three TF32 products a product for f32; for bf16 three bf16
-            # products (the f32 operand in three bf16 parts; G takes one)
-            peak=(dev.peak_flops_tf32 if itemsize == 4 else dev.peak_flops_bf16) / 3,
+        threads, smem = _ssd.mma_launch(L, N, dh, itemsize)
+        # x read and y written once; B and C once (the heads of a batch share
+        # them in L2); cs and dt read; the final state written
+        nbytes = (2 * b * s * nh * dh * itemsize + 2 * b * s * N * itemsize
+                  + b * s * nh * (4 + itemsize) + 4 * b * nh * dh * N)
+        # three TF32 products a product for f32; for bf16 three bf16 products
+        # (the f32 operand in three bf16 parts; G takes one)
+        peak = (dev.peak_flops_tf32 if itemsize == 4 else dev.peak_flops_bf16) / 3
+        if _ssd.mma_streams(L, N, dh, itemsize):
+            # one walk per (batch, head, slice of 8 W columns of dh); per
+            # chunk C.S_prev^T and the state update over the slice, G over
+            # the 16 x 8 tiles at or below the diagonal (8 a sub-tile below
+            # it, 6 on it) for every slice, and P.x over the 16 x 16 blocks
+            # of (rows, keys) at or below it (4 a sub-tile, 3 on it)
+            cols = threads // 4
+            slices, lp, np_ = -(-dh // cols), -(-L // 32) * 32, -(-N // 32) * 32
+            nr = lp // 32
+            below = nr * (nr - 1) // 2
+            flops = b * nh * slices * nc * (4 * lp * cols * np_
+                                             + (8 * below + 6 * nr) * 2 * 16 * 8 * np_
+                                             + (4 * below + 3 * nr) * 2 * 16 * 16 * cols)
+            regs, n_blocks = SSD_STREAM_REGISTERS, b * nh * slices
+        else:
+            lp, rt = -(-L // 16) * 16, _ssd.MMA_ROW_TILE
+            # 16 x 8 tiles of G (and of P . x) at or below the diagonal, over
+            # row tiles of 32 rows
+            g_tiles = sum((r0 // 8 + 2) * 2 + 2 if lp - r0 >= rt else r0 // 8 + 2
+                          for r0 in range(0, lp, rt))
             # per chunk: C.S_prev^T and the state update over the padded
             # dh, G over the tiles at or below the diagonal, and P.x over
             # the same tiles for every column of dh
-            flops=b * nh * nc * (4 * lp * threads // 2 * N
-                                 + g_tiles * 2 * 16 * 8 * (N + threads // 2)),
-            # x read and y written once; B and C once (the heads of a batch
-            # share them in L2); cs and dt read; the final state written
-            nbytes=(2 * b * s * nh * dh * itemsize + 2 * b * s * N * itemsize
-                    + b * s * nh * (4 + itemsize) + 4 * b * nh * dh * N))
+            flops = b * nh * nc * (4 * lp * threads // 2 * N
+                                   + g_tiles * 2 * 16 * 8 * (N + threads // 2))
+            regs, n_blocks = SSD_MMA_REGISTERS, b * nh
+        walk = dict(smem=smem, threads=max(threads, 32), n_blocks=n_blocks, regs=regs,
+                    peak=peak, flops=flops, nbytes=nbytes)
         launches = [cumsum, walk]
-        feasible = _fits(smem, threads, dev)
+        feasible = threads > 0 and _fits(smem, threads, dev)
         occupancy = blocks_per_sm(smem, threads, dev, regs)
     else:
         # where no tile fits, a stand-in of 8 keeps the model finite (the

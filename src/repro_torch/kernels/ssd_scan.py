@@ -13,28 +13,29 @@ chunk:
 
 y = (y_intra + y_inter) rounded once to x's dtype; the final state is f32.
 
-``ssd_scan_cuda`` launches one of three hand-written Hopper kernels,
-chosen by :func:`route` before the launch, each after the chunk cumsum of
+``ssd_scan_cuda`` launches one of three hand-written Hopper routes, chosen by
+:func:`route` before the launch, each after the chunk cumsum of
 ``csrc/ssd_scan.cu``:
 
 * ``wgmma`` (``csrc/ssd_scan_wgmma.cu``): bf16 at dh in ``WGMMA_DH``, N in
   ``WGMMA_N`` and a chunk in ``WGMMA_CHUNKS``; one chunk walk per (batch,
   head) on ``wgmma`` with the state in registers;
-* ``mma`` (``csrc/ssd_scan_mma.cu``): every other call up to dh
-  ``MMA_MAX_DH``, N ``MMA_MAX_N`` and a chunk of ``MMA_MAX_CHUNK`` whose
-  chunk tiles fit one block's shared memory (f32; bf16 at chunk 32 or
-  another dh, N or chunk); one chunk walk per (batch, head) on
-  ``mma.sync`` with each f32 operand split into parts the tensor core
-  multiplies exactly (f32 inputs: two TF32 parts, three products a
-  product; bf16 inputs, where C, B and x are exact: the one f32 operand in
-  three bf16 parts, three bf16 products), the state in registers, no
-  y_inter scratch;
-* ``fma`` (``csrc/ssd_scan.cu``): what is left (dh or N above 128, a chunk
-  above 256, f32 chunk tiles too large for a block, such as chunk 256 at
-  mamba2-780m widths); the state walk with the inter-chunk term into an f32
-  y_inter scratch, then the intra-chunk term, on f32 FMAs, at tiles picked
-  for each call (:func:`row_tile`, :func:`state_plan`), so at any dh, N and
-  chunk.
+* ``mma``: every other call, on ``mma.sync`` with each f32 operand split
+  into parts the tensor core multiplies exactly (f32 inputs: two TF32
+  parts, three products a product; bf16 inputs, where C, B and x are
+  exact: the one f32 operand in three bf16 parts, three bf16 products), no
+  y_inter scratch. Up to dh ``MMA_MAX_DH``, N ``MMA_MAX_N`` and a chunk of
+  ``MMA_MAX_CHUNK`` whose chunk tiles fit one block
+  (``csrc/ssd_scan_mma.cu``): one chunk walk per (batch, head), whole chunks
+  staged, the state in registers. Every other size (:func:`mma_streams`:
+  f32 chunk 256 at mamba2-780m and zamba2-2.7b widths, dh or N above 128, a
+  chunk above 256) on ``csrc/ssd_scan_stream.cu``: one walk per (batch,
+  head, slice of dh), a chunk's rows streamed in sub-tiles of
+  ``STREAM_KEYS``, the state in shared memory (:func:`stream_warps`);
+* ``fma`` (``csrc/ssd_scan.cu``): what no mma block holds (N above about
+  350 in f32, 650 in bf16); the state walk with the inter-chunk term into
+  an f32 y_inter scratch, then the intra-chunk term, on f32 FMAs, at tiles
+  picked for each call (:func:`row_tile`, :func:`state_plan`).
 
 A failed build or launch raises; no route stands in for another.
 ``ssd_scan_plain`` computes the same function in plain torch over the same
@@ -43,7 +44,7 @@ the chunking, the recurrence and ``initial_state``. On the wgmma route it
 rounds to bf16 where that kernel feeds the tensor cores one bf16 value:
 x * w for the chunk's own state, and S_prev for the inter-chunk term (P
 enters that kernel's products as two bf16 parts, close enough to f32). On
-the other two it rounds nowhere: the split keeps f32.
+the mma route it rounds nowhere: the split keeps f32.
 """
 from __future__ import annotations
 
@@ -59,6 +60,11 @@ from repro_torch.kernels import _build
 SOURCES = {"fma": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "wgmma": "src/repro_torch/kernels/csrc/ssd_scan_wgmma.cu",
            "mma": "src/repro_torch/kernels/csrc/ssd_scan_mma.cu"}
+#: the mma route's kernel for the calls whose chunks it streams, and its
+#: launch count's key (the route's other kernel counts under
+#: "ssd_scan/mma"; see :func:`launch_key`)
+STREAM_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_stream.cu"
+STREAM_KEY = "ssd_scan/mma:stream"
 REPLACES = "src/repro/kernels/ssd_scan.py:24"
 
 #: threads per CUDA block of the FMA route (state and intra kernels)
@@ -72,29 +78,54 @@ WGMMA_N = (64, 128)
 WGMMA_CHUNKS = (64, 128, 256)
 
 
-#: the mma route's limits: dh is padded inside the kernel to 32, 64 or 128
-#: (one warp per 16 columns), N to 64 or 128 and held in registers (N / 2
-#: floats a thread), and a chunk's cs and dt take at most 256 rows
+#: the whole-chunk mma kernel's limits: dh is padded inside the kernel to
+#: 32, 64 or 128 (one warp per 16 columns), N to 64 or 128 and held in
+#: registers (N / 2 floats a thread), and a chunk's cs and dt take at most
+#: 256 rows; past them, or where a chunk's tiles do not fit a block, the
+#: route streams (:func:`mma_streams`)
 MMA_MAX_DH = 128
 MMA_MAX_N = 128
 MMA_MAX_CHUNK = 256
-#: rows of the mma kernel's row tile (the P buffer's rows)
+#: rows of the mma kernels' row tile (the P buffer's rows)
 MMA_ROW_TILE = 32
+#: rows of the streamed kernel's sub-tiles (B and x) and its most warps (two
+#: per 16 columns of a slice of dh)
+STREAM_KEYS = 32
+STREAM_MAX_WARPS = 8
 
 
+@functools.lru_cache(maxsize=None)
 def route(dtype: torch.dtype, chunk: int, dh: int, N: int) -> str:
     """Which kernel runs a call at the chunk it runs (``min(chunk, s)``),
     decided before the launch: ``"wgmma"`` for bf16 at a size the wgmma
-    kernel is instantiated for; else ``"mma"`` up to ``MMA_MAX_DH``,
-    ``MMA_MAX_N`` and ``MMA_MAX_CHUNK`` where one chunk's tiles fit a
-    block's shared memory; else ``"fma"``."""
+    kernel is instantiated for; else ``"mma"`` where a block of one of its
+    kernels fits (whole chunks or streamed, :func:`mma_launch`); else
+    ``"fma"`` (N above what two warps' streamed block holds: about 350 in
+    f32, 650 in bf16)."""
     if (dtype == torch.bfloat16 and dh in WGMMA_DH and N in WGMMA_N
             and chunk in WGMMA_CHUNKS):
         return "wgmma"
-    if (dh <= MMA_MAX_DH and N <= MMA_MAX_N and chunk <= MMA_MAX_CHUNK
-            and mma_plan(chunk, N, dh, 4 if dtype == torch.float32 else 2)[0]):
-        return "mma"
-    return "fma"
+    return "mma" if mma_launch(chunk, N, dh, 4 if dtype == torch.float32 else 2)[0] else "fma"
+
+
+def mma_streams(chunk: int, N: int, dh: int, itemsize: int) -> bool:
+    """Whether the mma route streams the call's chunks
+    (``csrc/ssd_scan_stream.cu``): above ``MMA_MAX_DH``, ``MMA_MAX_N`` or
+    ``MMA_MAX_CHUNK``, or where one chunk's tiles do not fit a block for the
+    whole-chunk kernel (:func:`mma_plan`)."""
+    return not (dh <= MMA_MAX_DH and N <= MMA_MAX_N and chunk <= MMA_MAX_CHUNK
+                and mma_plan(chunk, N, dh, itemsize)[0])
+
+
+def launch_key(dtype: torch.dtype, chunk: int, dh: int, N: int) -> str:
+    """The launch count's key of the kernel a call runs at the chunk it runs:
+    ``"ssd_scan/<route>"``, and where the mma route streams the streamed
+    kernel's :data:`STREAM_KEY`. Each launch counts under one key; a
+    route's launches are the sum of its kernels' (the key up to ``:``)."""
+    path = route(dtype, chunk, dh, N)
+    if path == "mma" and mma_streams(chunk, N, dh, dtype.itemsize):
+        return STREAM_KEY
+    return f"ssd_scan/{path}"
 
 
 def mma_warps(dh: int) -> int:
@@ -146,6 +177,59 @@ def smem_bytes_mma(chunk: int, N: int, dh: int, itemsize: int) -> int:
     launch and the resource model both call this."""
     stages, pbufs = mma_plan(chunk, N, dh, itemsize)
     return _mma_bytes(chunk, N, dh, itemsize, stages, pbufs) if stages else 0
+
+
+def _stream_bytes(chunk: int, N: int, warps: int, itemsize: int) -> int:
+    lp, np_ = -(-chunk // 32) * 32, -(-N // 32) * 32
+    rem = 8 if itemsize == 4 else 4
+    cw = _build.row_words(np_, itemsize, rem, 32)
+    xw = _build.row_words(8 * warps, itemsize, rem, 32)
+    state = 8 * warps * _build.row_words(np_, 4, 8, 32)
+    return 4 * (state + 3 * lp + 2 * MMA_ROW_TILE * cw + 2 * STREAM_KEYS * (cw + xw)
+                + MMA_ROW_TILE * _build.row_words(STREAM_KEYS, 4, 8, 32))
+
+
+@functools.lru_cache(maxsize=None)
+def stream_warps(chunk: int, N: int, dh: int, itemsize: int) -> int:
+    """Warps W of a block of the streamed kernel, which owns a slice of 8 W
+    columns of dh (two warps to each 16 columns, each taking half of a row
+    tile's rows): of the even counts up to ``STREAM_MAX_WARPS`` and two per
+    16 columns of dh whose block fits, the one that keeps the most warps
+    resident on an SM (the blocks its shared memory holds, at most two of 8
+    warps, as the launch bounds allow), the larger on a tie (fewer slices,
+    each recomputing G); 0 where two warps' block does not fit."""
+    best = most = 0
+    for w in range(2, min(STREAM_MAX_WARPS, 2 * -(-dh // 16)) + 1, 2):
+        nbytes = _stream_bytes(chunk, N, w, itemsize)
+        if nbytes > H100_SXM.smem_per_block:
+            break
+        blocks = H100_SXM.smem_per_sm // (nbytes + H100_SXM.smem_reserved_per_block)
+        resident = w * min(blocks, 2 * STREAM_MAX_WARPS // w)
+        if resident >= most:
+            best, most = w, resident
+    return best
+
+
+def smem_bytes_stream(chunk: int, N: int, dh: int, itemsize: int) -> int:
+    """Dynamic shared memory the streamed kernel asks for at
+    :func:`stream_warps` (8 W columns of dh a block): the slice's state
+    [8 W][N padded to 32] in f32 (rows padded to 8 words mod 32); cs, dt
+    and w of a chunk (its rows padded to 32) in f32; two row tiles of C rows
+    and two sub-tiles of B and x rows in the input type (rows padded as the
+    whole-chunk kernel pads them); one 32 x 32 P buffer. 0 where it does
+    not fit."""
+    w = stream_warps(chunk, N, dh, itemsize)
+    return _stream_bytes(chunk, N, w, itemsize) if w else 0
+
+
+def mma_launch(chunk: int, N: int, dh: int, itemsize: int) -> Tuple[int, int]:
+    """(threads, dynamic shared memory) of the mma route's launch: the
+    whole-chunk kernel's, or where it streams the streamed kernel's; (0, 0)
+    where no block fits. The launch and the resource model both call
+    this."""
+    if mma_streams(chunk, N, dh, itemsize):
+        return 32 * stream_warps(chunk, N, dh, itemsize), smem_bytes_stream(chunk, N, dh, itemsize)
+    return mma_threads(dh), smem_bytes_mma(chunk, N, dh, itemsize)
 
 
 def _wgmma_smem(chunk: int, N: int, dh: int, stages: int) -> int:
@@ -385,8 +469,8 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
             s0_ptr, cs.data_ptr())
     if path == "mma":
         err = lib.ssd_scan_mma_launch(
-            *ptrs, y.data_ptr(), S.data_ptr(), b, s, nh, dh, N, L, code, mma_threads(dh),
-            smem_bytes_mma(L, N, dh, x.element_size()), _build.stream_ptr(dev))
+            *ptrs, y.data_ptr(), S.data_ptr(), b, s, nh, dh, N, L, code,
+            *mma_launch(L, N, dh, x.element_size()), _build.stream_ptr(dev))
         _build.check("ssd_scan_mma_launch", err)
     elif path == "wgmma":
         err = lib.ssd_scan_wgmma_launch(
@@ -402,7 +486,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk: int = 256,
             _build.stream_ptr(dev))
         _build.check("ssd_scan_launch", err)
     _build.LAUNCHES["ssd_scan"] += 1
-    _build.LAUNCHES[f"ssd_scan/{path}"] += 1
+    _build.LAUNCHES[launch_key(x.dtype, L, dh, N)] += 1
     return y, S
 
 
@@ -419,10 +503,21 @@ def wgmma_attributes(chunk: int, N: int, dh: int = 64) -> Tuple[int, int]:
 
 def mma_attributes(dh: int, N: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) the compiler gave the
-    mma kernel at this head dim, state size and dtype; builds the
-    library."""
+    whole-chunk mma kernel at this head dim, state size and dtype; builds
+    the library."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     err = _build.library().ssd_scan_mma_attributes(
         dh, N, _build.DTYPE_CODES[dtype], ctypes.byref(regs), ctypes.byref(local))
     _build.check("ssd_scan_mma_attributes", err)
+    return regs.value, local.value
+
+
+def stream_attributes(dtype: torch.dtype) -> Tuple[int, int]:
+    """(registers per thread, local bytes per thread) the compiler gave the
+    streamed mma kernel in this dtype (one instantiation a dtype); builds
+    the library."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _build.library().ssd_scan_stream_attributes(
+        _build.DTYPE_CODES[dtype], ctypes.byref(regs), ctypes.byref(local))
+    _build.check("ssd_scan_stream_attributes", err)
     return regs.value, local.value

@@ -4,16 +4,20 @@ version over the full legal grid of the CI shapes and a few odd shapes
 initial state at every chunk on the route each takes, the bf16 SSD scan on
 its wgmma route at every instantiated (chunk, N) over an odd number of
 chunks, the SSD scan on its mma route (f32 and bf16, chunks 32-256, odd dh
-and N, with and without an initial state) and on the FMA kernels at the
-sizes the mma kernel does not take (N above 128, chunk 512, odd dh, N and
-chunks), bf16 flash attention
+and N, with and without an initial state), on its mma route's streamed
+kernel at the sizes the FMA kernels took (f32 chunk 256, N above 128,
+chunk 512, dh above 128, odd dh, N and chunks) and on the FMA kernels at N
+past two warps' streamed block (odd dh, N and chunks, masked last tiles and
+slices, with and without an initial state), bf16 flash attention
 on both of its routes and f32 flash attention on the mma route (its ring
 holding part of a tile where two whole ones do not fit) with ``sq != sk``,
 ``q_offset``, odd K-tile walks and short query blocks at d = 64, 96 and
 128, heads of 160, 192 and 256 at the smallest and the largest tile (f32
 and bf16 outside the pools on the mma route, bf16 in them on wgmma), bf16
-at d 80, 160, 192 and 256 on wgmma over every tile of the pools, the FMA
-kernel at d = 320 and 512, every full-width flash
+at d 80, 160, 192 and 256 on wgmma over every tile of the pools, the mma
+route's split kernel at d = 264-1024 (every tile of the pools at 264-512)
+and the FMA kernel at d 1088, every
+full-width flash
 tile above 128 rows or keys on ``wgmma`` and the shipped blocks through
 ``ops``, every rmsnorm path (wide rows included) at an odd row count and
 every ``block_rows``, the oracle
@@ -166,12 +170,13 @@ def test_ssd_wgmma_matches_plain(chunk, N, with_state, card):
     assert agree["passed"], agree
 
 
-#: (dtype, dh, N, chunk) the mma kernel takes among f32 and bf16, odd and
-#: full-width (dh, N) and chunks 32-256 (route() is a pure function of the
-#: sizes: the list is the same on every machine)
+#: (dtype, dh, N, chunk) the whole-chunk mma kernel takes among f32 and
+#: bf16, odd and full-width (dh, N) and chunks 32-256 (launch_key() is a pure
+#: function of the sizes: the list is the same on every machine; the mma
+#: route's streamed calls are test_ssd_fma_takes_what_the_mma_kernel_cannot's)
 SSD_MMA_CASES = [(dtype, dh, N, chunk) for dtype in ("float32", "bfloat16")
                  for dh, N in ((24, 40), (32, 48), (64, 128)) for chunk in (32, 64, 128, 256)
-                 if ssd.route(conformance._DTYPES[dtype], chunk, dh, N) == "mma"]
+                 if ssd.launch_key(conformance._DTYPES[dtype], chunk, dh, N) == "ssd_scan/mma"]
 
 
 @pytest.mark.cuda
@@ -198,21 +203,58 @@ def test_ssd_mma_matches_plain(dtype, dh, N, chunk, with_state, card):
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dtype,dh,N,chunk", [
     ("float32", 64, 128, 256),   # f32 chunk tiles of 256 rows do not fit a block
+    ("float32", 64, 64, 256),    # zamba2-2.7b's widths in f32
     ("float32", 32, 160, 64),    # N above 128
     ("bfloat16", 32, 160, 64),
-    ("float32", 128, 256, 256),  # a row tile of 32, where 64 would not fit
+    ("float32", 128, 256, 256),  # N 256 at dh 128: slices of dh
     ("bfloat16", 96, 128, 512),  # a chunk above 256
-    ("float32", 30, 130, 96),    # dh and N padded to 4, a masked last row tile
-    ("bfloat16", 130, 30, 160),  # a masked last slice of dh
+    ("float32", 30, 130, 96),    # dh and N padded, a masked last sub-tile
+    ("bfloat16", 130, 30, 160),  # a last slice of dh with 2 columns
+    ("bfloat16", 256, 64, 64),   # dh above 128 in two slices
 ])
 def test_ssd_fma_takes_what_the_mma_kernel_cannot(dtype, dh, N, chunk, with_state, card):
+    # the calls the FMA kernels took past the whole-chunk mma kernel: the mma
+    # route streams them (csrc/ssd_scan_stream.cu)
+    shape = KernelShape("ssd_stream", "ssd_scan",
+                        {"b": 1, "s": 2 * chunk, "nh": 2, "dh": dh, "N": N}, dtype)
+    x, dt, A, B, C = conformance.make_inputs(shape, device=card)
+    gen = torch.Generator(device=card).manual_seed(dh + N + chunk)
+    init = (0.3 * torch.randn(1, 2, dh, N, generator=gen, device=card)
+            if with_state else None)
+    assert ssd.route(x.dtype, chunk, dh, N) == "mma"
+    assert ssd.launch_key(x.dtype, chunk, dh, N) == ssd.STREAM_KEY
+    before = _build.LAUNCHES[ssd.STREAM_KEY]
+    got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=init)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[ssd.STREAM_KEY] == before + 1
+    agree = conformance.agree_with_plain(
+        got, ssd_scan_plain(x, dt, A, B, C, chunk=chunk, initial_state=init))
+    assert agree["passed"], agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("dtype,dh,N,chunk,tiles", [
+    # N past what two warps' streamed block holds, with (row tile, (state
+    # tile, state slice)) of the FMA kernels
+    ("float32", 32, 384, 64, (32, (32, 32))),    # a row tile of 32
+    ("bfloat16", 16, 768, 32, (32, (16, 16))),
+    ("float32", 30, 390, 75, (32, (32, 32))),    # dh, N and the chunk padded to 4,
+                                                 # masked last row and state tiles
+    ("float32", 131, 401, 48, (48, (32, 32))),   # a masked last slice of 3 columns
+    ("bfloat16", 37, 650, 96, (32, (32, 8))),    # slices of 8, the last of 5
+    ("float32", 66, 513, 200, (32, (32, 16))),   # masked last row tile, state tile
+                                                 # and slice
+])
+def test_ssd_fma_takes_what_no_mma_block_holds(dtype, dh, N, chunk, tiles, with_state, card):
     shape = KernelShape("ssd_fma", "ssd_scan",
                         {"b": 1, "s": 2 * chunk, "nh": 2, "dh": dh, "N": N}, dtype)
     x, dt, A, B, C = conformance.make_inputs(shape, device=card)
     gen = torch.Generator(device=card).manual_seed(dh + N + chunk)
     init = (0.3 * torch.randn(1, 2, dh, N, generator=gen, device=card)
             if with_state else None)
-    assert ssd.route(x.dtype, chunk, dh, N) == "fma"
+    assert ssd.route(x.dtype, chunk, dh, N) == "fma" and ssd.supported(chunk, N, dh)
+    assert (ssd.row_tile(chunk, N, dh), ssd.state_plan(chunk, N, dh)) == tiles
     before = _build.LAUNCHES["ssd_scan/fma"]
     got = ssd_scan_cuda(x, dt, A, B, C, chunk=chunk, initial_state=init)
     torch.cuda.synchronize()
@@ -354,21 +396,68 @@ def test_flash_padded_heads_match_plain_on_wgmma(d, causal, card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d,bq,bk", [
-    (torch.bfloat16, 320, 16, 16),   # d above 256
+    (torch.bfloat16, 320, 16, 16),   # d above 256: the split kernel
     (torch.float32, 320, 16, 32),
     (torch.float32, 512, 16, 16),
+    (torch.float32, 320, 128, 128),  # pool tiles the FMA kernel refused
+    (torch.bfloat16, 512, 256, 64),
+    (torch.bfloat16, 264, 512, 512),
+    (torch.float32, 1024, 8, 8),     # 8 slices, 8-key sub-tiles
+    (torch.bfloat16, 1000, 64, 32),
 ])
 def test_flash_fma_takes_what_the_mma_kernel_cannot(dtype, d, bq, bk, card):
+    # the calls the FMA kernel took above d 256: the mma route's split kernel
+    # (csrc/flash_attention_split.cu) runs them
     gen = torch.Generator(device=card).manual_seed(d + bk)
     q, k, v = ((0.3 * torch.randn(1, 256, hh, d, generator=gen, device=card)).to(dtype)
                for hh in (4, 2, 2))
-    assert fa.route(dtype, d, bq, bk) == "fma"
-    before = _build.LAUNCHES["flash_attention/fma"]
+    assert fa.route(dtype, d, bq, bk) == "mma"
+    assert fa.launch_key(dtype, d, bq, bk) == fa.SPLIT_KEY
+    before = _build.LAUNCHES[fa.SPLIT_KEY]
     got = fa.flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[fa.SPLIT_KEY] == before + 1
+    agree = conformance.agree_with_plain(
+        got, fa.flash_attention_plain(q, k, v, causal=True, block_q=bq, block_k=bk))
+    assert agree["passed"], agree
+    regs, local = fa.mma_attributes(d, dtype)
+    assert 0 < regs <= 255 and local == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [264, 320, 384, 448, 512])
+def test_every_pool_tile_above_d_256_matches_plain_on_the_split_kernel(d, dtype, card):
+    # the 16 tiles of the pools (block_q, block_k in 64-512), which the FMA
+    # kernel refused at d 320 and above: each launches on the split kernel
+    gen = torch.Generator(device=card).manual_seed(d)
+    q, k, v = ((0.3 * torch.randn(1, 512, hh, d, generator=gen, device=card)).to(dtype)
+               for hh in (4, 2, 2))
+    for bq in fa.WGMMA_BLOCKS:
+        for bk in fa.WGMMA_BLOCKS:
+            assert fa.route(dtype, d, bq, bk) == "mma"
+            before = _build.LAUNCHES[fa.SPLIT_KEY]
+            got = fa.flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_k=bk)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES[fa.SPLIT_KEY] == before + 1
+            agree = conformance.agree_with_plain(
+                got, fa.flash_attention_plain(q, k, v, causal=True, block_q=bq, block_k=bk))
+            assert agree["passed"], (bq, bk, agree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fma_takes_d_above_1024(dtype, card):
+    gen = torch.Generator(device=card).manual_seed(1088)
+    q, k, v = ((0.3 * torch.randn(1, 64, hh, 1088, generator=gen, device=card)).to(dtype)
+               for hh in (2, 1, 1))
+    assert fa.route(dtype, 1088, 8, 8) == "fma"
+    before = _build.LAUNCHES["flash_attention/fma"]
+    got = fa.flash_attention_cuda(q, k, v, causal=True, block_q=8, block_k=8)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention/fma"] == before + 1
     agree = conformance.agree_with_plain(
-        got, fa.flash_attention_plain(q, k, v, causal=True, block_q=bq, block_k=bk))
+        got, fa.flash_attention_plain(q, k, v, causal=True, block_q=8, block_k=8))
     assert agree["passed"], agree
 
 

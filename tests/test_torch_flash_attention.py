@@ -26,7 +26,9 @@ from repro_torch.kernels.resource_model import (flash_attention_resources,
                                                 flash_mma_registers,
                                                 flash_wgmma_launch_registers,
                                                 flash_wgmma_registers)
-from repro_torch.kernels.flash_attention import (MMA_D, NEG_INF, SOURCES,
+from repro_torch.kernels.flash_attention import (MMA_D, MMA_MAX_D, MMA_SLICE, NEG_INF,
+                                                 SOURCES, _launch_plan, mma_slices,
+                                                 mma_split_plan,
                                                  WGMMA_BLOCKS, WGMMA_CONSUMER_REGS,
                                                  WGMMA_D, WGMMA_PRODUCER_REGS, _flash_walk,
                                                  flash_attention_plain,
@@ -256,14 +258,17 @@ def test_route_is_decided_by_dtype_head_dim_and_tile():
     assert route(torch.float32, 64, 64, 256) == route(bf16, 100, 512, 512) == "mma"
     # heads of 129-256 on the wgmma kernel in bf16 at the pools' tiles (DP
     # 256), on the mma kernel in f32, at other tiles or a d not a multiple
-    # of 8; only d above 256 goes to the FMA kernel
+    # of 8; d 257-1024 on the mma route's split kernel, in both types; only
+    # d above 1024 goes to the FMA kernel
     assert route(bf16, 160, 64, 64) == route(bf16, 256, 512, 512) == "wgmma"
     assert route(bf16, 136, 128, 128) == route(bf16, 192, 64, 512) == "wgmma"
     assert route(bf16, 160, 32, 64) == route(torch.float32, 256, 1, 1) == "mma"
     assert route(bf16, 129, 512, 512) == route(torch.float32, 192, 64, 64) == "mma"
     assert route(torch.float32, 256, 512, 512) == route(bf16, 256, 1, 256) == "mma"
-    assert route(bf16, 257, 64, 64) == route(torch.float32, 320, 1, 1) == "fma"
-    assert route(bf16, 264, 64, 64) == route(bf16, 512, 512, 512) == "fma"
+    assert route(bf16, 257, 64, 64) == route(torch.float32, 320, 1, 1) == "mma"
+    assert route(bf16, 264, 64, 64) == route(bf16, 512, 512, 512) == "mma"
+    assert route(torch.float32, 1024, 8, 8) == route(bf16, 1024, 512, 512) == "mma"
+    assert route(bf16, 1025, 1, 1) == route(torch.float32, 1088, 8, 8) == "fma"
 
 
 def test_wgmma_dispatch_instantiates_exactly_the_routed_tiles():
@@ -484,13 +489,13 @@ def test_every_call_up_to_d_256_is_feasible_on_its_route(d_range, dtype):
 
 
 def test_every_tile_the_fma_kernel_took_still_launches():
-    # a call that fits the FMA kernel's shared memory runs on the mma
-    # kernel where that fits too, else on the FMA kernel: no such call is
-    # refused (d up to 512, block_q and block_k from 1 to 512); above d 256
-    # the FMA kernel takes exactly what it took
+    # a call that fits the FMA kernel's shared memory runs on the mma or
+    # wgmma route, never the FMA kernel, up to d 1024 (block_q and block_k
+    # from 1 to 512), the wrapper's launch plan the model's
     blocks = (1, 16, 32, 64, 96, 128, 256, 512)
     for dtype, itemsize in ((torch.float32, 4), (torch.bfloat16, 2)):
-        for d in (8, 16, 24, 64, 80, 96, 128, 160, 256, 320, 512):
+        for d in (8, 16, 24, 64, 80, 96, 128, 160, 256, 264, 320, 384, 448, 512, 640, 768,
+                  1000, 1024):
             for bq in blocks:
                 for bk in blocks:
                     if smem_bytes_fma(bq, bk, d, itemsize) > 232_448:
@@ -500,8 +505,84 @@ def test_every_tile_the_fma_kernel_took_still_launches():
                                         {"b": 1, "sq": bq, "sk": bk, "h": 2, "kh": 1, "d": d}, f32)
                     res = kernel_resources(shape, {"block_q": bq, "block_k": bk, "causal": True})
                     assert res.feasible, (f32, d, bq, bk, res.route)
-                    assert res.route == route(dtype, d, bq, bk)
-                    assert (res.route == "fma") == (d > 256)
+                    assert res.route == route(dtype, d, bq, bk) != "fma"
+                    if res.route == "mma":
+                        assert res.threads == mma_threads(bq, d, itemsize)
+                        assert res.vmem_bytes == smem_bytes_mma(bq, bk, d, itemsize)
+    # the FMA kernel took d 1024 at 8-row tiles, in both types
+    assert smem_bytes_fma(8, 8, 1024, 4) <= 232_448 and smem_bytes_fma(8, 8, 1024, 2) <= 232_448
+
+
+SPLIT_D = (264, 320, 384, 448, 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", SPLIT_D)
+def test_every_pool_tile_above_d_256_launches_on_the_split_kernel(d, dtype):
+    # the 16 pool tiles above d 256 (the FMA kernel fit none at d 320 and
+    # above, one in bf16 at d 264): each is feasible on the mma route's split
+    # kernel, within a block, and the wrapper's launch plan is the model's
+    itemsize = dtype.itemsize
+    for bq in WGMMA_BLOCKS:
+        for bk in WGMMA_BLOCKS:
+            res = flash_attention_resources(1, 512, 512, 2, 1, d, bq, bk, itemsize)
+            assert res.feasible and res.route == route(dtype, d, bq, bk) == "mma", (bq, bk)
+            assert smem_bytes_fma(bq, bk, d, itemsize) > 232_448 or (d, itemsize) == (264, 2)
+            plan = _launch_plan((1, 512, 2, d), (1, 512, 1, d), (1, 512, 1, d), dtype,
+                                bq, bk, True, 0)
+            cfg = list(plan[3])
+            assert plan[0] == "flash_attention_mma_launch"
+            assert cfg[11:] == [res.threads, res.vmem_bytes, mma_stage_keys(bq, bk, d, itemsize)]
+            assert res.vmem_bytes <= 232_448 and res.threads <= 256
+            assert res.regs_per_thread <= 255 and res.regs_per_thread * res.threads <= 65_536
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_range", [(257, 448), (449, 640), (641, 832), (833, 1024)])
+def test_every_call_from_d_257_to_1024_is_feasible_on_the_split_kernel(d_range, dtype):
+    # d 257-1024 (every multiple of 8 and its odd neighbours), block_q and
+    # block_k from 1 to 512: each launches on the split kernel, its ring
+    # holding a multiple of its sub-tile within a block
+    itemsize = dtype.itemsize
+    blocks = (1, 16, 32, 64, 96, 128, 256, 512)
+    for d in (d for d in range(d_range[0], d_range[1] + 1) if d % 8 in (0, 1, 7)):
+        kc, groups = mma_split_plan(d, itemsize)
+        assert kc in (8, 16, 32) and groups >= 1 and mma_slices(d) * groups <= 8
+        for bq in blocks:
+            for bk in blocks:
+                res = flash_attention_resources(1, bq, bk, 2, 1, d, bq, bk, itemsize)
+                assert res.feasible and res.route == "mma", (d, bq, bk)
+                st = mma_stage_keys(bq, bk, d, itemsize)
+                assert st % kc == 0 and st >= kc and res.vmem_bytes <= 232_448
+
+
+def test_split_plan_is_its_sources():
+    # slices of 128 columns up to d 1024, one warp a slice; 8 warps a block:
+    # two groups of 16 rows up to 4 slices, where they fit beside two stages
+    src = (Path(__file__).resolve().parents[1]
+           / "src/repro_torch/kernels/csrc/flash_attention_split.cu").read_text()
+    assert re.search(rf"constexpr int SLICE = {MMA_SLICE};", src)
+    assert re.search(rf"constexpr int SPLIT_MAX_D = {MMA_MAX_D};", src)
+    assert [mma_head_dim(d) for d in (257, 264, 320, 321, 1023, 1024, 1025)] == \
+        [264, 264, 320, 328, 1024, 1024, 0]
+    assert [mma_slices(d) for d in (256, 257, 384, 385, 512, 513, 1024)] == \
+        [1, 3, 3, 4, 4, 5, 8]
+    # f32: 32-key sub-tiles to d 384 (one group at 384), 16 to 640, 8 above;
+    # bf16: 32 to 640, 16 above
+    assert [mma_split_plan(d, 4) for d in (264, 320, 384, 512, 640, 768, 1024)] == \
+        [(32, 2), (32, 2), (32, 1), (16, 2), (16, 1), (8, 1), (8, 1)]
+    assert [mma_split_plan(d, 2) for d in (264, 320, 384, 512, 640, 768, 1024)] == \
+        [(32, 2), (32, 2), (32, 2), (32, 2), (32, 1), (16, 1), (16, 1)]
+    assert mma_sub_keys(320, 4) == 32 and mma_sub_keys(1024, 4) == 8
+    assert [mma_threads(bq, 320, 4) for bq in (1, 16, 17, 512)] == [96, 96, 192, 192]
+    assert mma_threads(512, 1024, 2) == 256 and mma_max_warps(512, 4) == 8
+    # two stages of 32 keys (328 + 324 words a key), 32 q rows (328 words)
+    # and six warps' partials (16 x 32 f32) at d 320 in f32
+    assert mma_stage_keys(128, 128, 320, 4) == 32
+    assert smem_bytes_mma(128, 128, 320, 4) == \
+        4 * (2 * 32 * (328 + 324) + 32 * 328 + 6 * 16 * 32) == 221_184
+    # registers: a slice of O (64), S (half the sub-tile) and 40
+    assert flash_mma_registers(320, 4) == 120 and flash_mma_registers(1024, 4) == 112
 
 
 def test_wgmma_route_runs_at_the_tensor_core_rate():
@@ -543,7 +624,7 @@ def test_mma_shared_memory_threads_and_head_dims():
         [32, 32, 64, 96, 256, 256, 256]
     assert [mma_head_dim(d) for d in (1, 16, 24, 64, 80, 96, 112, 128, 129, 192, 193,
                                       256, 257)] == \
-        [16, 16, 32, 64, 96, 96, 128, 128, 160, 192, 256, 256, 0]
+        [16, 16, 32, 64, 96, 96, 128, 128, 160, 192, 256, 256, 264]
     assert MMA_D == (16, 32, 64, 96, 128, 160, 192, 256)
     src = (Path(__file__).resolve().parents[1] / SOURCES["mma"]).read_text()
     cases = {int(m) for m in re.findall(r"^\s*FLASH_MMA_CASE\((\d+)\)", src, re.M)}
@@ -559,10 +640,14 @@ def test_mma_shared_memory_threads_and_head_dims():
     # above d = 128 q stays in shared memory: O (d/2), S (16) and 40
     assert [flash_mma_registers(d, 4) for d in (128, 160, 192, 256)] == [184, 136, 152, 184]
     assert [flash_mma_registers(d, 2) for d in (160, 192, 256)] == [136, 152, 184]
-    # above d = 256 the FMA kernel takes the call
+    # d 320 on the split kernel; above d = 1024 the FMA kernel takes the call
     f32 = KernelShape("attn_d320", "flash_attention",
                       {"b": 1, "sq": 64, "sk": 64, "h": 1, "kh": 1, "d": 320}, "float32")
     res = kernel_resources(f32, {"block_q": 16, "block_k": 16, "causal": True})
+    assert res.route == "mma" and res.feasible
+    f32 = KernelShape("attn_d1088", "flash_attention",
+                      {"b": 1, "sq": 64, "sk": 64, "h": 1, "kh": 1, "d": 1088}, "float32")
+    res = kernel_resources(f32, {"block_q": 8, "block_k": 8, "causal": True})
     assert res.route == "fma" and res.feasible
 
 
@@ -621,7 +706,12 @@ def _flash_emulated(q, k, v, *, causal, block_q, block_k, q_offset=0, terms=3):
         for t in range(k_tiles_walked(qt, bq, bk, sk, causal=causal, q_offset=q_offset)):
             k_t = kf[..., t * bk:(t + 1) * bk, :]
             v_t = vf[..., t * bk:(t + 1) * bk, :]
-            s = tf32_product(q_t, k_t.transpose(-1, -2).expand(b, kh, g, d, bk), terms)
+            # above d 256 each slice of 128 columns gives a partial score,
+            # added in slice order as the split kernel adds them
+            w = MMA_SLICE if d > 256 else d
+            s = sum(tf32_product(q_t[..., c:c + w], k_t[..., c:c + w].transpose(-1, -2)
+                                 .expand(b, kh, g, min(w, d - c), bk), terms)
+                    for c in range(0, d, w))
             if causal:
                 k_pos = t * bk + torch.arange(bk)
                 s = s.masked_fill(q_pos[:, None] < k_pos[None, :], NEG_INF)
@@ -665,7 +755,7 @@ def test_split_tf32_holds_attn_s128_f32_to_its_plain_version(dims):
     assert agree["passed"] and agree["limit"] <= PLAIN_REL[torch.float32], agree
 
 
-@pytest.mark.parametrize("d", [16, 64, 96, 128, 160, 192, 256])
+@pytest.mark.parametrize("d", [16, 64, 96, 128, 160, 192, 256, 320, 520])
 @pytest.mark.parametrize("q_offset,causal", [(0, True), (-32, True), (0, False)])
 def test_split_tf32_holds_each_head_dim_to_its_plain_version(d, q_offset, causal):
     # q_offset -32: the first 32 rows see no key and average V (-1e30 mask)

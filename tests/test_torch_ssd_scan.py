@@ -150,8 +150,10 @@ def test_ssd_supported_agrees_with_the_launcher(chunk, ok):
     assert (tl, tq, ps) == (min(chunk, 64), min(chunk, 32), 64)
     launcher = all(t > 0 and t % 4 == 0 for t in (tl, tq, ps))
     assert ssd.supported(chunk, 128, 64) == launcher == ok
-    # N 160 is above the mma kernel's 128: these calls take the FMA kernels
-    assert ssd.route(torch.bfloat16, chunk, 64, 160) == "fma"
+    # N 160 is above the whole-chunk mma kernel's 128: these calls stream on
+    # the mma route
+    assert ssd.route(torch.bfloat16, chunk, 64, 160) == "mma"
+    assert ssd.mma_streams(chunk, 160, 64, 2)
     assert ssd_scan_resources(1, 4 * chunk, 2, 64, 160, chunk).feasible == ok
     # at N 128 the tensor-core routes take every one of these chunks
     res = ssd_scan_resources(1, 4 * chunk, 2, 64, 128, chunk)
@@ -161,17 +163,18 @@ def test_ssd_supported_agrees_with_the_launcher(chunk, ok):
 @pytest.mark.parametrize("itemsize", [4, 2])
 @pytest.mark.parametrize("dh", [32, 64, 96, 128, 160, 256])
 def test_every_census_call_launches(dh, itemsize):
-    # dh x N 16-256 x chunk 32-512: at a fixed row tile of 64, 64 of these
-    # 360 calls would pass a block; each launches on its route, and on fma
-    # with tiles whose blocks fit
+    # dh x N 16-256 x chunk 32-512: each of these 360 calls launches on
+    # wgmma or mma (whole chunks or streamed), none on fma, the wrapper's
+    # launch the model's
     dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
     for N in (16, 64, 128, 160, 192, 256):
         for chunk in (32, 64, 128, 256, 512):
             res = ssd_scan_resources(1, 2 * chunk, 2, dh, N, chunk, itemsize=itemsize)
-            assert res.feasible and res.route == ssd.route(dtype, chunk, dh, N), (N, chunk)
-            if res.route == "fma":
-                assert 0 < ssd.smem_bytes_intra(chunk, N, dh) <= H100_SXM.smem_per_block
-                assert 0 < ssd.smem_bytes_state(chunk, N, dh) <= H100_SXM.smem_per_block
+            assert res.feasible and res.route == ssd.route(dtype, chunk, dh, N) != "fma", \
+                (N, chunk)
+            if res.route == "mma":
+                assert (res.threads, res.vmem_bytes) == ssd.mma_launch(chunk, N, dh, itemsize)
+                assert 0 < res.vmem_bytes <= H100_SXM.smem_per_block
     # dh 128, N 256, chunk 256 would ask 243,712 B at a row tile of 64: 32
     assert ssd._intra_bytes(256, 256, 128, 64) == 243_712
     assert ssd.row_tile(256, 256, 128) == 32
@@ -182,31 +185,34 @@ def test_every_census_call_launches(dh, itemsize):
 @pytest.mark.parametrize("dh", [30, 64, 130])
 def test_every_odd_census_call_launches(dh, itemsize):
     # odd sizes: dh and N not multiples of 4 (padded inside the kernels),
-    # chunks the row tile does not divide (a masked last tile)
+    # chunks the row and sub-tiles do not divide (masked last tiles): none
+    # on fma; a streamed call's slices of dh cover dh
     dtype = {2: torch.bfloat16, 4: torch.float32}[itemsize]
     for N in (30, 64, 130, 160):
         for chunk in (48, 96, 160, 192, 320):
             res = ssd_scan_resources(1, 2 * chunk, 2, dh, N, chunk, itemsize=itemsize)
-            assert res.feasible and res.route == ssd.route(dtype, chunk, dh, N), (N, chunk)
-            if res.route == "fma":
-                tl, (tq, ps) = ssd.row_tile(chunk, N, dh), ssd.state_plan(chunk, N, dh)
-                assert tl % 4 == tq % 4 == ps % 4 == 0 and tl <= 64 and tq <= 32
-                assert ps <= -(-dh // 4) * 4 and tl <= -(-chunk // 4) * 4
+            assert res.feasible and res.route == ssd.route(dtype, chunk, dh, N) != "fma", \
+                (N, chunk)
+            if res.route == "mma" and ssd.mma_streams(chunk, N, dh, itemsize):
+                w = ssd.stream_warps(chunk, N, dh, itemsize)
+                assert 2 <= w <= 8 and w % 2 == 0 and 8 * w <= -(-dh // 16) * 16
+                assert res.threads == 32 * w
 
 
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("dh,N,chunk", [(16, 160, 64), (16, 256, 64), (16, 48, 512),
                                         (30, 130, 96)])
 def test_fma_sizes_plain_matches_pallas(dh, N, chunk, with_state):
-    # the sizes only the FMA kernels take (N above 128, a chunk above 256;
-    # dh and N padded inside the kernel, a chunk the row tile does not
-    # divide), through their plain version, against the Pallas kernel
+    # the sizes the FMA kernels took and the mma route now streams (N above
+    # 128, a chunk above 256; dh and N padded inside the kernel, a chunk the
+    # sub-tile does not divide), through its plain version, against the
+    # Pallas kernel
     import jax.numpy as jnp
 
     rng = np.random.default_rng(dh + N + chunk + with_state)
     arrays = _np_inputs(rng, 1, 2 * chunk, 3, dh, N)
     s0 = (0.3 * rng.standard_normal((1, 3, dh, N))).astype(np.float32) if with_state else None
-    assert ssd.route(torch.float32, chunk, dh, N) == "fma" and ssd.supported(chunk, N, dh)
+    assert ssd.route(torch.float32, chunk, dh, N) == "mma" and ssd.mma_streams(chunk, N, dh, 4)
     jin, tin = _both(arrays)
     want_y, want_s = jops.ssd_scan(*jin, chunk=chunk, interpret=True,
                                    initial_state=None if s0 is None else jnp.asarray(s0))
@@ -271,7 +277,7 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     (torch.bfloat16, 128, 64, 128, "wgmma"),
     (torch.bfloat16, 256, 64, 128, "wgmma"),
     (torch.bfloat16, 256, 64, 64, "wgmma"),  # zamba2-2.7b's state
-    (torch.float32, 256, 64, 128, "fma"),  # f32 chunk tiles beyond a block
+    (torch.float32, 256, 64, 128, "mma"),  # f32 chunk tiles beyond a block: streamed
     (torch.bfloat16, 32, 64, 128, "mma"),  # wgmma's M is 64
     (torch.bfloat16, 192, 64, 128, "mma"),  # a chunk wgmma has no tile for
     (torch.bfloat16, 256, 32, 128, "mma"),  # another head dim
@@ -281,9 +287,12 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     (torch.float32, 256, 32, 32, "mma"),  # ssd_s256_f32
     (torch.float32, 32, 24, 40, "mma"),  # ssd_odd_b2_s96_f32
     (torch.bfloat16, 48, 20, 33, "mma"),  # rows, dh and N padded inside
-    (torch.float32, 64, 32, 160, "fma"),  # N above 128
-    (torch.bfloat16, 64, 192, 64, "fma"),  # dh above 128
-    (torch.bfloat16, 512, 32, 32, "fma"),  # a chunk above 256
+    (torch.float32, 64, 32, 160, "mma"),  # N above 128: streamed
+    (torch.bfloat16, 64, 192, 64, "mma"),  # dh above 128: slices of dh
+    (torch.bfloat16, 512, 32, 32, "mma"),  # a chunk above 256: streamed
+    (torch.float32, 256, 64, 64, "mma"),  # zamba2-2.7b's widths in f32: streamed
+    (torch.float32, 64, 64, 512, "fma"),  # N beyond two warps' streamed block
+    (torch.bfloat16, 64, 64, 1024, "fma"),
 ])
 def test_route_is_decided_by_dtype_chunk_head_dim_and_state(dtype, chunk, dh, N, want):
     assert ssd.route(dtype, chunk, dh, N) == want
@@ -346,9 +355,11 @@ def test_wgmma_route_plain_matches_pallas_and_the_fma_route(N, chunk, with_state
     assert max_err(y, want_y) <= tol and max_err(st, want_s) <= tol
     # the plain version of the f32 routes: the same bf16 values in f32
     # (exactly representable) with no intermediate rounding, y rounded once;
-    # f32 chunk tiles of 256 rows do not fit the mma kernel's block
+    # f32 chunk tiles of 256 rows do not fit the whole-chunk kernel's block:
+    # they stream
     f32 = [t.float() for t in bf]
-    assert ssd.route(torch.float32, chunk, 64, N) == ("fma" if chunk == 256 else "mma")
+    assert ssd.route(torch.float32, chunk, 64, N) == "mma"
+    assert ssd.mma_streams(chunk, N, 64, 4) == (chunk == 256)
     fy, fs = ssd.ssd_scan_plain(*f32, chunk=chunk, initial_state=init)
     assert max_err(y, fy.to(torch.bfloat16)) <= tol and max_err(st, fs) <= tol
     # and the rounding of x * w and S_prev does show
@@ -370,18 +381,25 @@ def test_resource_model_routes_and_refuses_as_the_wrapper(itemsize, N, dh):
             assert res.feasible and res.vmem_bytes == ssd.smem_bytes_wgmma(chunk, N, dh)
             assert res.blocks_per_sm == ssd.wgmma_ctas_per_sm(chunk, N, dh)
         elif path == "mma":  # routed only where its block fits: it launches
-            assert res.feasible and res.threads == ssd.mma_threads(dh)
-            assert res.vmem_bytes == ssd.smem_bytes_mma(chunk, N, dh, itemsize) > 0
-            assert res.vmem_bytes <= H100_SXM.smem_per_block
+            assert res.feasible
+            assert (res.threads, res.vmem_bytes) == ssd.mma_launch(chunk, N, dh, itemsize)
+            assert 0 < res.vmem_bytes <= H100_SXM.smem_per_block
+            if not ssd.mma_streams(chunk, N, dh, itemsize):
+                assert res.threads == ssd.mma_threads(dh)
+                assert res.vmem_bytes == ssd.smem_bytes_mma(chunk, N, dh, itemsize)
         else:  # the FMA kernels refuse what supported() refuses
             assert res.feasible == (ssd.supported(chunk, N, dh)
                                     and res.vmem_bytes <= H100_SXM.smem_per_block)
-    # N above 128 leaves only the FMA kernels; below it the mma kernel takes
-    # every chunk up to 256 at bf16
+    # N above 128 streams on the mma route; below it the whole-chunk kernel
+    # takes every chunk up to 256 at bf16, and f32 streams at 256 only
+    assert "fma" not in seen and "mma" in seen
+    streamed = {c for c in (16, 32, 48, 64, 96, 128, 192, 256)
+                if ssd.route(dtype, c, dh, N) == "mma" and ssd.mma_streams(c, N, dh, itemsize)}
     if N > 128:
-        assert seen == {"fma"}
+        assert streamed == {c for c in (16, 32, 48, 64, 96, 128, 192, 256)
+                            if ssd.route(dtype, c, dh, N) == "mma"}
     else:
-        assert "mma" in seen and (itemsize == 4 or "fma" not in seen)
+        assert streamed <= {192, 256}
 
 
 def test_mma_smem_formula_and_threads():
@@ -420,7 +438,9 @@ def test_mma_smem_formula_and_threads():
 
 
 def test_mma_dispatch_instantiates_every_routed_size():
-    src = (Path(__file__).resolve().parents[1] / ssd.SOURCES["mma"]).read_text()
+    root = Path(__file__).resolve().parents[1]
+    src = (root / ssd.SOURCES["mma"]).read_text() + \
+        (root / "src/repro_torch/kernels/csrc/ssd_mma.cuh").read_text()
     cases = {tuple(map(int, m)) for m in
              re.findall(r"^\s*SSD_MMA_CASE\((\d+), (\d+)\)", src, re.M)}
     routed = {(ssd.mma_warps(d), ssd.mma_state_cols(n) // 8)
@@ -518,3 +538,63 @@ def test_one_tf32_product_would_not_hold_the_f32_scan_to_its_plain_version():
         miss = conformance.agree_with_plain(one[part], want[part])
         assert not miss["passed"] and miss["ratio"] > 4, (part, miss)
         assert conformance.agree_with_plain(three[part], want[part])["ratio"] < 0.25
+
+
+@pytest.mark.parametrize("dh,N", [(64, 128), (64, 64)])
+def test_f32_at_the_default_chunk_runs_on_mma_at_both_ssm_widths(dh, N):
+    # mamba2-780m (dh 64, N 128) and zamba2-2.7b (dh 64, N 64) in f32 at the
+    # reference's default chunk 256: the whole-chunk kernel's block would
+    # need about 394 KB, so the mma route streams; the modelled block fits
+    assert ssd.route(torch.float32, 256, dh, N) == "mma"
+    assert ssd.mma_plan(256, N, dh, 4) == (0, 0) and ssd.mma_streams(256, N, dh, 4)
+    assert ssd._mma_bytes(256, 128, 64, 4, 1, 1) > 390_000
+    res = ssd_scan_resources(8, 4096, 48, dh, N, 256, itemsize=4)
+    assert res.feasible and res.route == "mma" and res.threads == 256
+    assert res.vmem_bytes == ssd.smem_bytes_stream(256, N, dh, 4) <= H100_SXM.smem_per_block
+
+
+def test_stream_plan_is_its_sources():
+    src = (Path(__file__).resolve().parents[1] / ssd.STREAM_SOURCE).read_text()
+    assert re.search(rf"constexpr int KS = {ssd.STREAM_KEYS};", src)
+    assert re.search(rf"constexpr int MAX_WARPS = {ssd.STREAM_MAX_WARPS};", src)
+    # the slice's state [8 W][N padded to 32] f32 (rows 8 mod 32 words); cs,
+    # dt, w of 256 rows; two row tiles of C rows and two sub-tiles of B and x
+    # rows (f32 rows 8 mod 32 words); a 32 x 40-word P buffer. At
+    # mamba2-780m's f32 widths 8 warps (one CTA an SM) and 4 (two of
+    # 105,472 B) keep 8 warps resident; the tie goes to the wider slice
+    assert ssd.stream_warps(256, 128, 64, 4) == 8
+    assert ssd.smem_bytes_stream(256, 128, 64, 4) == \
+        4 * (64 * 136 + 3 * 256 + 2 * 32 * 136 + 2 * 32 * (136 + 72) + 32 * 40) == 131_072
+    assert ssd._stream_bytes(256, 128, 4, 4) == \
+        4 * (32 * 136 + 3 * 256 + 2 * 32 * 136 + 2 * 32 * (136 + 40) + 32 * 40) == 105_472
+    # dh 256 in slices of 64 (8 warps), two CTAs an SM in bf16, one in f32
+    # at N 256
+    assert ssd.stream_warps(256, 128, 256, 2) == 8
+    assert ssd.stream_warps(256, 256, 256, 4) == 8
+    assert ssd.mma_launch(256, 256, 64, 2) == (256, ssd.smem_bytes_stream(256, 256, 64, 2))
+    # dh 16 takes two warps (one pair of 16 columns)
+    assert ssd.stream_warps(64, 64, 16, 4) == 2
+    # two warps' block holds N up to 352 in f32, 640 in bf16; past it the
+    # FMA kernels take the call
+    assert ssd.stream_warps(64, 352, 16, 4) == 2 and ssd.stream_warps(64, 368, 16, 4) == 0
+    assert ssd.stream_warps(64, 640, 16, 2) == 2 and ssd.stream_warps(64, 672, 16, 2) == 0
+    assert ssd.route(torch.float32, 64, 16, 384) == "fma" and ssd.supported(64, 384, 16)
+
+
+@pytest.mark.parametrize("dtype,dh,N,chunk", [
+    ("float32", 64, 128, 256), ("float32", 64, 64, 256), ("bfloat16", 32, 256, 64),
+    ("float32", 130, 30, 160), ("bfloat16", 24, 40, 512)])
+def test_split_walk_holds_the_streamed_sizes_to_their_plain_version(dtype, dh, N, chunk):
+    # the streamed calls take the products the whole-chunk walk takes, in
+    # sub-tiles: the emulated walk holds them to the plain version
+    dt_ = getattr(torch, dtype)
+    assert ssd.route(dt_, chunk, dh, N) == "mma" and ssd.mma_streams(chunk, N, dh, dt_.itemsize)
+    rng = np.random.default_rng(dh + N + chunk)
+    arrays = _np_inputs(rng, 1, 2 * chunk, 2, dh, N)
+    inputs = [torch.from_numpy(a).to(dt_) if a.ndim > 1 else torch.from_numpy(a)
+              for a in arrays]
+    want = ssd.ssd_scan_plain(*inputs, chunk=chunk)
+    got = _ssd_emulated(*inputs, chunk=chunk)
+    for part in (0, 1):
+        agree = conformance.agree_with_plain(got[part], want[part])
+        assert agree["passed"], (part, agree)
